@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Smoke run of molvoxel_torch on one CUDA card: build, check, drive, time.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure ends the run with a
+non-zero exit code:
+
+1. card: ``nvidia-smi`` name and power limit, CUDA and torch versions.
+2. build: compile every kernel from ``molvoxel_torch/csrc`` (nvcc).
+3. kernel_vs_plain: each kernel against its plain PyTorch version on the
+   card, on the same prepared inputs, in the working type (f32 1e-5, bf16
+   2^-7*max, fp8 2^-3*max): aligned grids (dims 48, 64), ragged grids
+   (dims 20, 40), a 256^3 grid, the 61-atom ligand and the 3262-atom
+   protein of tests/goldens, a depth slab and channel-wise radii.
+4. goldens: the 20 goldens whose density is not gaussian_notrunc through
+   ``create_voxelizer`` on CUDA, at their own bars (1e-5; 5e-5 for *_torchref).
+5. main_path: the public entry points at full width, with the launch counts
+   set to 0 just before and read just after each path:
+   - row 1 (whole-row grids): ``forward_batch`` on 64 ligands of 61 atoms,
+     each with its own random rotation and 0.5 A translation, into a 64^3 x 4
+     gaussian grid in bfloat16; the 3262-atom protein at 48^3 and 128^3, f32;
+   - row 2 (gaussian, ragged or 256^3): the ligand at dims 20 and 40 and at 256^3;
+   - row 3 (binary, ragged or 256^3): the ligand at dim 40 and at 256^3.
+   Each path's output is checked against the plain dense path, and each
+   kernel is timed (CUDA events over 10 back-to-back launches, median of 7)
+   beside its plain version at that path's shapes.  The headline
+   ``forward_batch`` call is also timed end to end on the host clock (two
+   warm-ups, then the median, minimum and maximum of 7 calls).
+6. kernels: one line {"kernels": [...]} with each kernel's launches, error,
+   times and bound.
+Then the nvidia-smi line again, and last {"ok": true, "device": {...}}.
+
+Needs one CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+GOLDENS = ROOT / "tests" / "goldens"
+REPLACES = {
+    1: "molvoxel_tpu/ops/pallas_deposit.py:407 (_kernel_v5, launched at :813)",
+    2: "molvoxel_tpu/ops/pallas_deposit.py:295 (_kernel_gaussian, launched at :716)",
+    3: "molvoxel_tpu/ops/pallas_deposit.py:344 (_kernel_binary, launched at :726)",
+}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+DEVICE = "cuda"
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def load_golden(stem):
+    import numpy as np
+
+    return dict(np.load(GOLDENS / f"{stem}.npz", allow_pickle=False))
+
+
+def bar(out_dtype, ref):
+    """Tolerance for a grid of ``out_dtype`` against the f32 reference ``ref``."""
+    import torch
+
+    scale = max(float(ref.abs().max()), 1.0)
+    return {torch.float32: 1e-5, torch.bfloat16: 2**-7 * scale, torch.float8_e4m3fn: 2**-3 * scale}[out_dtype]
+
+
+def time_ms(fn, reps=7, inner=10):
+    """Milliseconds per call of fn(): the median over ``reps`` of CUDA-event
+    timings of ``inner`` back-to-back calls, after two warm-ups.  Calls run
+    back to back so that the host's enqueue overlaps the device's work."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def active_pairs(rows, wt, spec, dl):
+    """(atom, voxel) pairs inside the cutoff for these kernel inputs, counting
+    only atoms with a nonzero weight: the pair work this data needs."""
+    import torch
+
+    res = float(spec.resolution)
+    half = spec.width / 2.0
+    live = wt.abs().amax(dim=1) > 0  # (B, Vp)
+    x, y, z, r2 = (rows[:, k][live].double() for k in range(4))
+    if x.numel() == 0:
+        return 0
+    r = torch.sqrt(r2)
+    n = int(torch.ceil(r.max() / res)) * 2 + 3
+    offs = torch.arange(n, device=rows.device, dtype=torch.float64)
+    total = 0
+    for i in range(0, x.numel(), 4096):
+        sl = slice(i, i + 4096)
+        d2 = 0
+        for k, (p, size) in enumerate(((x[sl], dl), (y[sl], spec.dimension), (z[sl], spec.dimension))):
+            first = torch.floor((p - r[sl] + half) / res) - 1
+            idx = first[:, None] + offs
+            dk2 = (idx * res - half - p[:, None]) ** 2
+            dk2 = torch.where((idx >= 0) & (idx < size), dk2, torch.full_like(dk2, float("inf")))
+            shape = [-1, 1, 1, 1]
+            shape[1 + k] = n
+            d2 = d2 + dk2.reshape(shape)
+        total += int((d2 <= r2[sl, None, None, None]).sum())
+    return total
+
+
+def bound(rows, wt, ranges, out, spec, dl, gaussian):
+    """Least time (ms) the card could take: max(bytes / HBM rate, FP32 ops /
+    FP32 rate).  Bytes: inputs read once, output written once; the inputs
+    are the five rows the kernel reads ([x, y, z, r^2, coef]) and the C
+    weights of each atom with a nonzero weight (padding and masked atoms
+    carry none), plus the plane ranges.  Ops per in-cutoff pair: 8 for the
+    cutoff, then 3 exp + 2 mul + 2 per channel (gaussian) or 1 per channel
+    (binary)."""
+    c = wt.shape[1]
+    n_live = int((wt.abs().amax(dim=1) > 0).sum())
+    n_bytes = n_live * (5 + c) * 4 + sum(t.numel() * t.element_size() for t in (ranges, out))
+    per_pair = 8 + (3 + 2 + 2 * c if gaussian else c)
+    ops = active_pairs(rows, wt, spec, dl) * per_pair
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from molvoxel_torch import create_voxelizer
+    from molvoxel_torch.core.config import GridSpec, small_atom_bucket
+    from molvoxel_torch.ops import _build, deposit
+    from molvoxel_torch.ops.batch import random_transform_batch, voxelize_batch
+    from molvoxel_torch.ops.dense import voxelize_dense
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    smi = nvidia_smi()
+
+    # 1. card
+    emit({"phase": "card", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+          "cuda": torch.version.cuda, "torch": torch.__version__, "python": sys.version.split()[0]})
+
+    # 2. build
+    t0 = time.perf_counter()
+    per_source = _build.build_all()
+    report = [ln.strip() for name in _build.SOURCES for ln in _build.build_log(name).splitlines()
+              if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source, "ptxas": report})
+
+    lig = load_golden("lig_features_gaussian")
+    prot = load_golden("protein_single_gaussian")
+    lig_xyz = torch.as_tensor(lig["coords"] - lig["center"], device=dev)
+    prot_xyz = torch.as_tensor(prot["coords"] - prot["center"], device=dev)
+    rng = np.random.default_rng(0)
+
+    def inputs(xyz, b, c):
+        w = rng.uniform(0.0, 1.0, size=(b, xyz.shape[0], c)).astype(np.float32)
+        coords = xyz[None].expand(b, -1, -1).contiguous()
+        if b > 1:  # a different orientation for every molecule
+            coords = random_transform_batch(torch.Generator().manual_seed(b), coords, 0.5, True)
+        return coords, torch.as_tensor(w, device=dev)
+
+    # 3. kernel against plain
+    cases = [
+        # name, coords, C, B, dim, res, density, out dtype, slab, channel-wise
+        ("lig_dim48_gauss_f32", lig_xyz, 4, 2, 48, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim48_binary_f32", lig_xyz, 4, 2, 48, 0.5, "binary", torch.float32, None, False),
+        ("lig_dim64_gauss_bf16", lig_xyz, 4, 8, 64, 0.5, "gaussian", torch.bfloat16, None, False),
+        ("lig_dim64_gauss_fp8", lig_xyz, 4, 8, 64, 0.5, "gaussian", torch.float8_e4m3fn, None, False),
+        ("lig_dim64_binary_bf16", lig_xyz, 4, 8, 64, 0.5, "binary", torch.bfloat16, None, False),
+        ("lig_dim64_slab16_32", lig_xyz, 4, 2, 64, 0.5, "gaussian", torch.float32, (16, 32), False),
+        ("lig_dim48_channelwise", lig_xyz, 4, 2, 48, 0.5, "gaussian", torch.float32, None, True),
+        ("lig_dim48_channelwise6_binary", lig_xyz, 6, 2, 48, 0.5, "binary", torch.float32, None, True),
+        ("lig_dim20_gauss_f32", lig_xyz, 4, 2, 20, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim20_binary_f32", lig_xyz, 4, 2, 20, 0.5, "binary", torch.float32, None, False),
+        ("lig_dim40_gauss_bf16", lig_xyz, 4, 2, 40, 0.5, "gaussian", torch.bfloat16, None, False),
+        ("lig_dim40_binary_f32", lig_xyz, 4, 2, 40, 0.5, "binary", torch.float32, None, False),
+        ("lig_dim256_gauss_f32", lig_xyz, 4, 1, 256, 0.25, "gaussian", torch.float32, None, False),
+        ("lig_dim256_binary_fp8", lig_xyz, 4, 1, 256, 0.25, "binary", torch.float8_e4m3fn, None, False),
+        ("prot_dim48_gauss_f32", prot_xyz, 1, 1, 48, 0.5, "gaussian", torch.float32, None, False),
+        ("prot_dim48_binary_f32", prot_xyz, 1, 1, 48, 0.5, "binary", torch.float32, None, False),
+        ("prot_dim128_gauss_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian", torch.float32, None, False),
+    ]
+    failed = []
+    for name, xyz, c, b, dim, res, density, odt, slab, channelwise in cases:
+        spec = GridSpec(resolution=res, dimension=dim)
+        coords, w = inputs(xyz, b, c)
+        kw = dict(spec=spec, density_type=density, sigma=0.5)
+        if slab is not None:
+            kw.update(d_offset=slab[0], d_count=slab[1])
+        if channelwise:
+            radii = torch.linspace(0.8, 1.6, c, device=dev)
+            coords, w, radii, _ = deposit.expand_channelwise(coords, w, radii, None)
+        else:
+            radii = torch.as_tensor(rng.uniform(0.8, 1.6, size=(b, xyz.shape[0])).astype(np.float32), device=dev)
+        rows, wt, ranges, dl, gaussian = deposit.prepare_batch(coords, w, radii, **kw)
+        got = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
+        torch.cuda.synchronize()
+        ref32 = deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian)
+        ref = ref32.to(odt).float()
+        err = float((got.float() - ref).abs().max())
+        tol = bar(odt, ref32)
+        ok = bool(np.isfinite(err) and err <= tol and torch.isfinite(got.float()).all())
+        emit({"phase": "kernel_vs_plain", "case": name, "shape": list(got.shape), "out_dtype": str(odt),
+              "max_abs_err": err, "tol": tol, "ok": ok})
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise SystemExit(f"kernel_vs_plain failed: {failed}")
+
+    # 4. goldens on CUDA through the public API
+    deposit.reset_launches()
+    golden_failed = []
+    n_goldens = 0
+    for path in sorted(GOLDENS.glob("*.npz")):
+        g = dict(np.load(path, allow_pickle=False))
+        if str(g["density"]) == "gaussian_notrunc":
+            continue
+        n_goldens += 1
+        vox = create_voxelizer(device=DEVICE, resolution=float(g["resolution"]), dimension=int(g["dimension"]),
+                               radii_type=str(g["radii_type"]), density_type=str(g["density"]),
+                               sigma=float(g["sigma"]))
+        center = g["center"] if g["center"].size else None
+        radii = float(g["radii"]) if g["radii"].ndim == 0 else g["radii"]
+        mode = str(g["mode"])
+        if mode == "features":
+            out = vox.forward_features(g["coords"], center, g["channels"].astype(np.float32), radii)
+        elif mode == "types":
+            out = vox.forward_types(g["coords"], center, g["channels"].astype(np.int32), radii)
+        else:
+            out = vox.forward_single(g["coords"], center, radii)
+        err = float(np.abs(out.cpu().numpy() - g["expected"]).max())
+        tol = 5e-5 if path.stem.endswith("torchref") else 1e-5
+        ok = out.device.type == dev.type and tuple(out.shape) == g["expected"].shape and err <= tol
+        emit({"phase": "golden", "golden": path.stem, "max_abs_err": err, "tol": tol, "ok": bool(ok)})
+        if not ok:
+            golden_failed.append(path.stem)
+    golden_launches = deposit.launches["deposit_fwd"]
+    emit({"phase": "goldens", "count": n_goldens, "failed": golden_failed, "launches": golden_launches})
+    if golden_failed or n_goldens != 20 or golden_launches <= 0:
+        raise SystemExit(f"goldens failed: {golden_failed}, count {n_goldens}, launches {golden_launches}")
+
+    # 5. full-width main paths through the public API
+    kernels = {}
+    lig_feat = lig["channels"][:, :4].astype(np.float32)  # (61, 4)
+
+    def check_and_time(row, label, out, ref, rows, wt, ranges, spec, dl, gaussian, odt, launches):
+        err = float((out.float() - ref.to(odt).float()).abs().max())
+        tol = bar(odt, ref)
+        ok = bool(torch.isfinite(out.float()).all()) and err <= tol and launches > 0
+        ms = time_ms(lambda: deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian,
+                                                 out_dtype=odt))
+        plain_ms = time_ms(lambda: deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian,
+                                                         out_dtype=odt), reps=5, inner=1)
+        kout = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
+        kerr = float((kout.float() - deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian,
+                                                           out_dtype=odt).float()).abs().max())
+        b_ms, b_by = bound(rows, wt, ranges, kout, spec, dl, gaussian)
+        line = {"phase": "main_path", "row": row, "case": label, "shape": list(out.shape), "out_dtype": str(odt),
+                "launches": launches, "max_abs_err_vs_dense": err, "tol": tol, "ok": ok,
+                "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "kernel_vs_plain_err": kerr, "out_bytes": kout.numel() * kout.element_size()}
+        emit(line)
+        if not ok or kerr > tol:
+            raise SystemExit(f"main path {label} failed")
+        return line
+
+    def dense_ref(coords, w, radii, spec, density, mask=None):
+        return torch.stack([voxelize_dense(coords[i], w[i], radii, spec=spec, density_type=density, sigma=0.5,
+                                           mask=None if mask is None else mask[i]) for i in range(coords.shape[0])])
+
+    # row 1: the headline batch, then the protein
+    spec64 = GridSpec(0.5, 64)
+    vox = create_voxelizer(device=DEVICE, resolution=0.5, dimension=64)
+    weights64 = (rng.uniform(size=(64, 61, 4)) < 0.3).astype(np.float32)
+    lig_np = lig_xyz.cpu().numpy()
+    clouds = [(lig_np, weights64[i]) for i in range(64)]
+    seed = 1234
+
+    def headline():
+        return vox.forward_batch(clouds, radii=1.0, random_translation=0.5, random_rotation=True, key=seed,
+                                 out_dtype="bfloat16")
+
+    deposit.reset_launches()
+    out = headline()
+    torch.cuda.synchronize()
+    launches = deposit.launches["deposit_fwd"]
+    e2e = []
+    for i in range(9):  # two warm-ups, then seven timed calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        headline()
+        torch.cuda.synchronize()
+        if i >= 2:
+            e2e.append((time.perf_counter() - t0) * 1e3)
+    # the same batch, the same transforms, through the plain dense path
+    b_coords = torch.zeros((64, 64, 3), device=dev)
+    b_coords[:, :61] = lig_xyz
+    b_w = torch.zeros((64, 64, 4), device=dev)
+    b_w[:, :61] = torch.as_tensor(weights64, device=dev)
+    b_mask = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    b_mask[:, :61] = True
+    ones = torch.ones(64, device=dev)
+    ref = voxelize_batch(b_coords, b_w, ones, b_mask, None, torch.Generator().manual_seed(seed), 0.5,
+                         spec=spec64, random_rotation=True, impl="dense")
+    xyz_t = random_transform_batch(torch.Generator().manual_seed(seed), b_coords, 0.5, True)
+    rows, wt, ranges, dl, gaussian = deposit.prepare_batch(xyz_t, b_w, ones, spec=spec64, mask=b_mask)
+    row1 = [check_and_time(1, "forward_batch_64lig_dim64_c4_bf16", out, ref, rows, wt, ranges, spec64, dl,
+                           gaussian, torch.bfloat16, launches)]
+    e2e_ms = statistics.median(e2e)
+    emit({"phase": "main_path_e2e", "case": row1[0]["case"], "forward_batch_ms_median": e2e_ms,
+          "forward_batch_ms_min": min(e2e), "forward_batch_ms_max": max(e2e), "calls": len(e2e),
+          "mols_per_s": 64 / (e2e_ms / 1e3)})
+    prot_np = prot["coords"]
+    for dim in (48, 128):
+        spec = GridSpec(0.5, dim)
+        vox = create_voxelizer(device=DEVICE, resolution=0.5, dimension=dim)
+        deposit.reset_launches()
+        out = vox.forward_single(prot_np, prot["center"], 1.0)
+        torch.cuda.synchronize()
+        launches = deposit.launches["deposit_fwd"]
+        ref = dense_ref(prot_xyz[None], torch.ones((1, prot_xyz.shape[0], 1), device=dev),
+                        torch.ones(prot_xyz.shape[0], device=dev), spec, "gaussian")[0]
+        # the kernel inputs as forward_single builds them: atom bucket 4096, masked
+        vp = small_atom_bucket(prot_xyz.shape[0])
+        p_coords = torch.zeros((1, vp, 3), device=dev)
+        p_coords[0, : prot_xyz.shape[0]] = prot_xyz
+        p_mask = torch.arange(vp, device=dev)[None] < prot_xyz.shape[0]
+        rows, wt, ranges, dl, gaussian = deposit.prepare_batch(p_coords, p_mask[..., None].float(),
+                                                               torch.ones(vp, device=dev), spec=spec, mask=p_mask)
+        row1.append(check_and_time(1, f"forward_single_protein_dim{dim}_f32", out, ref, rows, wt, ranges, spec, dl,
+                                   gaussian, torch.float32, launches))
+    # row 1 is timed on the headline batch; its launches count all three calls
+    kernels[1] = dict(row1[0], launches=sum(ln["launches"] for ln in row1),
+                      max_abs_err=max(ln["kernel_vs_plain_err"] for ln in row1))
+
+    # rows 2 and 3: ragged and 256^3 grids, gaussian then binary
+    lig_w = torch.as_tensor(lig_feat, device=dev)[None]
+    lig_ones = torch.ones(61, device=dev)
+    for row, density, grids in ((2, "gaussian", ((20, 0.5), (40, 0.5), (256, 0.25))),
+                                (3, "binary", ((40, 0.5), (256, 0.25)))):
+        deposit.reset_launches()
+        outs = []
+        for dim, res in grids:
+            vox = create_voxelizer(device=DEVICE, resolution=res, dimension=dim, density_type=density)
+            outs.append(vox.forward_features(lig["coords"], lig["center"], lig_feat, 1.0))
+        torch.cuda.synchronize()
+        launches = deposit.launches["deposit_fwd"]
+        dim, res = grids[-1]
+        spec = GridSpec(res, dim)
+        ref = dense_ref(lig_xyz[None], lig_w, lig_ones, spec, density)[0]
+        rows, wt, ranges, dl, gaussian = deposit.prepare_batch(lig_xyz[None], lig_w, lig_ones, spec=spec,
+                                                               density_type=density)
+        line = check_and_time(row, f"forward_features_lig_dim{dim}_{density}_f32", outs[-1], ref, rows, wt, ranges,
+                              spec, dl, gaussian, torch.float32, launches)
+        for (dim_i, res_i), out_i in zip(grids[:-1], outs[:-1]):
+            spec_i = GridSpec(res_i, dim_i)
+            err = float((out_i - dense_ref(lig_xyz[None], lig_w, lig_ones, spec_i, density)[0]).abs().max())
+            emit({"phase": "main_path_check", "row": row, "dim": dim_i, "max_abs_err_vs_dense": err, "tol": 1e-5})
+            if err > 1e-5:
+                raise SystemExit(f"main path row {row} dim {dim_i} failed")
+        kernels[row] = dict(line, max_abs_err=line["kernel_vs_plain_err"])
+
+    # 6. kernels line
+    emit({"kernels": [
+        {"name": f"deposit_fwd (table row {row})", "route": "cuda", "source": "molvoxel_torch/csrc/deposit_fwd.cu",
+         "replaces": REPLACES[row], "launches": k["launches"], "max_abs_err": k["max_abs_err"],
+         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+         "library_ms": None, "timed_case": k["case"]}
+        for row, k in sorted(kernels.items())
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

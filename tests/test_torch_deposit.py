@@ -1,0 +1,178 @@
+"""molvoxel_torch.ops.deposit against molvoxel_tpu.ops.pallas_deposit (Pallas in
+interpret mode on the CPU): Morton keys, plane ranges, and the plain version
+of the CUDA deposit kernel, on the same numpy inputs."""
+
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from molvoxel_torch.core.config import GridSpec as TSpec
+from molvoxel_torch.ops import _build, deposit
+from molvoxel_tpu.core.config import GridSpec as JSpec
+from molvoxel_tpu.ops.pallas_deposit import (
+    _plane_ranges_closed,
+    morton_keys,
+    voxelize_pallas_batch,
+    voxelize_pallas_batch_channelwise,
+)
+
+
+def _cloud(rng, b=2, v=200, c=3, box=3.5, n_pad=20):
+    coords = rng.uniform(-box, box, size=(b, v, 3)).astype(np.float32)
+    weights = rng.uniform(0.0, 1.0, size=(b, v, c)).astype(np.float32)
+    radii = rng.uniform(0.7, 1.8, size=(b, v)).astype(np.float32)
+    mask = np.ones((b, v), bool)
+    mask[:, v - n_pad:] = False
+    return coords, weights, radii, mask
+
+
+def _t(*arrays):
+    return [torch.as_tensor(a) for a in arrays]
+
+
+@pytest.mark.parametrize("dim", [12, 16, 33])
+def test_morton_keys_match(rng, dim):
+    coords, _, _, mask = _cloud(rng, v=300, box=dim * 0.3)
+    coords[0, :5] = 50.0  # off-grid atoms clip to the edge cell
+    got = deposit.morton_keys(torch.as_tensor(coords), TSpec(0.5, dim), torch.as_tensor(mask))
+    want = np.asarray(morton_keys(jnp.asarray(coords), JSpec(0.5, dim), jnp.asarray(mask)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _shifted_rows(rng, dim, d_offset, res=0.5):
+    coords, _, radii, mask = _cloud(rng, v=256, box=dim * res * 0.45, n_pad=40)
+    coords[:, -40:] = deposit.FAR  # padding atoms sit far off, as the wrapper pads them
+    r2 = np.where(mask, radii * radii, 1.0).astype(np.float32)
+    xs = coords[..., 0] - np.float32(d_offset) * np.float32(res)
+    shifted = np.stack([xs, coords[..., 1], coords[..., 2]], axis=-1)
+    return shifted, r2
+
+
+@pytest.mark.parametrize("dim,d_offset,d_count", [(16, 0, None), (32, 0, None), (32, 8, 12), (64, 20, 24)])
+def test_plane_ranges_equal_closed_form_on_whole_rows(rng, dim, d_offset, d_count):
+    # the port's 128-voxel tiles are whole h rows here: 128 // dim rows each
+    shifted, r2 = _shifted_rows(rng, dim, d_offset)
+    dl = dim if d_count is None else d_count
+    got = deposit.plane_ranges(torch.as_tensor(shifted), torch.as_tensor(r2), TSpec(0.5, dim), dl)
+    nhwt = dim * dim // deposit.TILE_HW
+    want = np.asarray(_plane_ranges_closed(jnp.asarray(shifted), jnp.asarray(r2), JSpec(0.5, dim), dl, nhwt,
+                                           deposit.TILE_HW // dim, deposit.CHUNK))
+    assert got.shape == (2, nhwt, 256 // deposit.CHUNK, 2)
+    np.testing.assert_array_equal(got.numpy().reshape(-1, 1, 2), want)
+
+
+@pytest.mark.parametrize("dim,res,d_offset,d_count", [(12, 0.5, 0, None), (20, 0.5, 3, 11), (40, 0.375, 0, None),
+                                                      (16, 0.25, 4, 8)])
+def test_plane_ranges_never_drop_a_reached_plane(rng, dim, res, d_offset, d_count):
+    """Whatever the tiling (ragged tiles too): every (atom, plane, voxel) the
+    exact cutoff reaches lies inside its (tile, chunk) range."""
+    spec = TSpec(res, dim)
+    shifted, r2 = _shifted_rows(rng, dim, d_offset, res)
+    dl = dim if d_count is None else d_count
+    ranges = deposit.plane_ranges(torch.as_tensor(shifted), torch.as_tensor(r2), spec, dl)
+    half = np.float32(spec.width / 2.0)
+    pos = np.arange(dim, dtype=np.float32) * np.float32(res) - half
+    pd = np.arange(dl, dtype=np.float32) * np.float32(res) - half
+    x, y, z = shifted[..., 0], shifted[..., 1], shifted[..., 2]
+    dx = pd[None, None, :] - x[..., None]
+    th = r2[..., None] - dx * dx  # (B, V, Dl)
+    dy2 = (pos[None, None, :] - y[..., None]) ** 2
+    dz2 = (pos[None, None, :] - z[..., None]) ** 2
+    dyz2 = (dy2[..., :, None] + dz2[..., None, :]).reshape(2, 256, dim * dim)
+    reach = dyz2[:, :, None, :] <= th[..., None]  # (B, V, Dl, HW)
+    b_i, v_i, d_i, hw_i = np.nonzero(reach)
+    assert b_i.size > 100
+    rg = ranges.numpy()[b_i, hw_i // deposit.TILE_HW, v_i // deposit.CHUNK]
+    assert ((rg[:, 0] <= d_i) & (d_i < rg[:, 1])).all()
+
+
+CASES = [(dim, dens, var) for dim in (16, 12) for dens in ("gaussian", "binary")
+         for var in ("full", "slab", "channelwise", "bf16")]
+
+
+@pytest.mark.parametrize("dim,density,variant", CASES, ids=[f"dim{d}-{g}-{v}" for d, g, v in CASES])
+def test_deposit_plain_matches_pallas(rng, dim, density, variant):
+    """B = 2, V = 200 (so the Morton sort runs), C = 3; dim 16 is H*W-aligned
+    (_kernel_v5), dim 12 has H*W = 144 (the streamed _kernel_gaussian /
+    _kernel_binary)."""
+    coords, weights, radii, mask = _cloud(rng)
+    spec_t, spec_j = TSpec(0.5, dim), JSpec(0.5, dim)
+    kw = dict(density_type=density, sigma=0.5)
+    if variant == "slab":
+        kw.update(d_offset=3, d_count=7)
+    out_dtype = "bfloat16" if variant == "bf16" else "float32"
+    if variant == "channelwise":
+        radii_c = np.asarray([0.8, 1.1, 1.6], np.float32)
+        want = voxelize_pallas_batch_channelwise(jnp.asarray(coords), jnp.asarray(weights), jnp.asarray(radii_c),
+                                                 spec=spec_j, mask=jnp.asarray(mask), **kw)
+        c_x, w_x, r_x, m_x = deposit.expand_channelwise(*_t(coords, weights, radii_c, mask))
+        rows, wt, ranges, dl, gaussian = deposit.prepare_batch(c_x, w_x, r_x, spec=spec_t, mask=m_x, **kw)
+    else:
+        want = voxelize_pallas_batch(jnp.asarray(coords), jnp.asarray(weights), jnp.asarray(radii), spec=spec_j,
+                                     mask=jnp.asarray(mask), out_dtype=out_dtype, **kw)
+        c_t, w_t, r_t, m_t = _t(coords, weights, radii, mask)
+        rows, wt, ranges, dl, gaussian = deposit.prepare_batch(c_t, w_t, r_t, spec=spec_t, mask=m_t, **kw)
+    got = deposit.deposit_plain(rows, wt, ranges, spec=spec_t, dl=dl, gaussian=gaussian,
+                                out_dtype=getattr(torch, out_dtype))
+    got = got.float().numpy().reshape(np.shape(want))
+    want = np.asarray(want, np.float32)
+    tol = 2**-7 * max(np.abs(want).max(), 1.0) if variant == "bf16" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+def test_batch_wrapper_on_cpu_runs_the_plain_version(rng):
+    coords, weights, radii, mask = _t(*_cloud(rng))
+    spec = TSpec(0.5, 12)
+    before = dict(deposit.launches)
+    out = deposit.voxelize_deposit_batch(coords, weights, radii, spec=spec, mask=mask, d_offset=2, d_count=5,
+                                         out_dtype="bfloat16")
+    rows, wt, ranges, dl, gaussian = deposit.prepare_batch(coords, weights, radii, spec=spec, mask=mask,
+                                                           d_offset=2, d_count=5)
+    plain = deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 3, 5, 12, 12)
+    assert torch.equal(out, plain.reshape(out.shape))
+    assert deposit.launches == before  # no kernel launch on CPU tensors
+
+
+def test_expand_channelwise_layout():
+    coords = torch.arange(12, dtype=torch.float32).reshape(1, 4, 3)
+    weights = torch.arange(8, dtype=torch.float32).reshape(1, 4, 2) + 1
+    c_x, w_x, r_x, m_x = deposit.expand_channelwise(coords, weights, torch.tensor([0.5, 2.0]), None)
+    assert c_x.shape == (1, 8, 3) and torch.equal(c_x[0, 4:], coords[0])
+    assert torch.equal(r_x, torch.tensor([0.5] * 4 + [2.0] * 4))
+    assert torch.equal(w_x[0, :4, 0], weights[0, :, 0]) and torch.equal(w_x[0, 4:, 1], weights[0, :, 1])
+    assert float(w_x[0, :4, 1].abs().sum() + w_x[0, 4:, 0].abs().sum()) == 0.0
+    assert m_x is None
+
+
+def test_forward_only_and_unported_density_raise(rng):
+    coords, weights, radii, mask = _t(*_cloud(rng))
+    spec = TSpec(0.5, 12)
+    with pytest.raises(NotImplementedError, match="B.2"):
+        deposit.voxelize_deposit_batch(coords.requires_grad_(), weights, radii, spec=spec, mask=mask)
+    with pytest.raises(NotImplementedError, match="A.8"):
+        deposit.voxelize_deposit_batch(coords.detach(), weights, radii, spec=spec, density_type="gaussian_notrunc")
+    with pytest.raises(ValueError, match="out_dtype"):
+        deposit.voxelize_deposit_batch(coords.detach(), weights, radii, spec=spec, out_dtype="float16")
+
+
+def test_kernel_wrapper_rejects_other_devices(rng):
+    coords, weights, radii, mask = _t(*_cloud(rng))
+    spec = TSpec(0.5, 12)
+    rows, wt, ranges, dl, gaussian = deposit.prepare_batch(coords, weights, radii, spec=spec, mask=mask)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        deposit.deposit_fwd(rows.to("meta"), wt.to("meta"), ranges.to("meta"), spec=spec, dl=dl, gaussian=gaussian)
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("deposit_fwd")
+    assert _build.library_path("deposit_fwd").name.startswith("libdeposit_fwd-")

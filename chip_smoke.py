@@ -3,31 +3,51 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure ends the run with a
-non-zero exit code:
+Phases, each printing JSON lines; any failure ends the run with a non-zero
+exit code:
 
 1. card: ``nvidia-smi`` name and power limit, CUDA and torch versions.
-2. build: compile every kernel from ``molvoxel_torch/csrc`` (nvcc).
-3. kernel_vs_plain: each kernel against its plain PyTorch version on the
+2. build: compile every kernel from ``molvoxel_torch/csrc`` (one nvcc for
+   each source, all started together).
+3. kernel_vs_plain: each forward case against ``deposit_plain`` on the
    card, on the same prepared inputs, in the working type (f32 1e-5, bf16
-   2^-7*max, fp8 2^-3*max): aligned grids (dims 48, 64), ragged grids
-   (dims 20, 40), a 256^3 grid, the 61-atom ligand and the 3262-atom
-   protein of tests/goldens, a depth slab and channel-wise radii.
-4. goldens: the 20 goldens whose density is not gaussian_notrunc through
-   ``create_voxelizer`` on CUDA, at their own bars (1e-5; 5e-5 for *_torchref).
-5. main_path: the public entry points at full width, with the launch counts
-   set to 0 just before and read just after each path:
+   2^-7*max, fp8 2^-3*max): aligned grids (dims 48, 64), ragged grids (dims
+   20, 40), a 256^3 grid, the 61-atom ligand and the 3262-atom protein of
+   tests/goldens, a depth slab, channel-wise radii and the notrunc
+   threshold row.  Then bwd_vs_plain: the backward kernel against
+   ``deposit_bwd_plain`` on the same inputs and cotangent: the headline
+   batch (f32 and bf16 cotangent), the protein at 48^3 and 128^3, dims 20
+   and 40, the ligand at 256^3, a depth slab, channel-wise radii (9
+   channels), binary density and the notrunc threshold row.  Bars: f32
+   1e-4 x max(1, gradient scale), since the kernel sums in another order;
+   a bf16 cotangent is held at that bar against the plain version on the
+   same bf16 values, and at 3e-2 x scale against the f32 cotangent.
+4. goldens: all 22 goldens through ``create_voxelizer`` on CUDA, at their
+   own bars (1e-5; 5e-5 for the two *_torchref goldens, gaussian_notrunc).
+5. main_path: the entry points at full width, with the launch counts set
+   to 0 just before and read just after each path:
    - row 1 (whole-row grids): ``forward_batch`` on 64 ligands of 61 atoms,
      each with its own random rotation and 0.5 A translation, into a 64^3 x 4
-     gaussian grid in bfloat16; the 3262-atom protein at 48^3 and 128^3, f32;
+     gaussian grid in bfloat16; the 3262-atom protein at 48^3 and 128^3, f32
+     (and gaussian_notrunc at 128^3, which routes to the kernel);
    - row 2 (gaussian, ragged or 256^3): the ligand at dims 20 and 40 and at 256^3;
-   - row 3 (binary, ragged or 256^3): the ligand at dim 40 and at 256^3.
-   Each path's output is checked against the plain dense path, and each
-   kernel is timed (CUDA events over 10 back-to-back launches, median of 7)
-   beside its plain version at that path's shapes.  The headline
-   ``forward_batch`` call is also timed end to end on the host clock (two
-   warm-ups, then the median, minimum and maximum of 7 calls).
-6. kernels: one line {"kernels": [...]} with each kernel's launches, error,
+   - row 3 (binary, ragged or 256^3): the ligand at dim 40 and at 256^3;
+   - row 4 (backward): the training step, the headline batch through
+     ``nn.VoxelizeLayer`` (seeded random rotation and 0.5 A translation, f32
+     grids), ``nn.VoxelCNN(4, 64, (16, 32, 64))`` and a ``Linear(64, 1)``,
+     MSE on per-molecule labels, Adam over the CNN and per-molecule rigid
+     poses (quaternion and shift): 2 warm-up and 7 timed steps, one forward
+     and one backward launch each.
+   Each path's output is checked against the plain path, and each kernel
+   is timed (CUDA events over 10 back-to-back launches, median of 7) beside
+   its plain version at that path's shapes.  The headline ``forward_batch``
+   call and the training step are also timed on the host clock (median,
+   minimum and maximum of 7).
+6. convergence: examples/pose_optimize.py through the kernel backward, the
+   61-atom golden ligand at 32^3, sigma 1.0, 400 Adam steps at 3e-2 on
+   (quaternion, shift) from a hidden pose drawn from a numpy seed; it must
+   end below 0.05 A RMSD.
+7. kernels: one line {"kernels": [...]} with each kernel's launches, error,
    times and bound.
 Then the nvidia-smi line again, and last {"ok": true, "device": {...}}.
 
@@ -49,6 +69,7 @@ REPLACES = {
     1: "molvoxel_tpu/ops/pallas_deposit.py:407 (_kernel_v5, launched at :813)",
     2: "molvoxel_tpu/ops/pallas_deposit.py:295 (_kernel_gaussian, launched at :716)",
     3: "molvoxel_tpu/ops/pallas_deposit.py:344 (_kernel_binary, launched at :726)",
+    4: "molvoxel_tpu/ops/pallas_deposit.py:903 (_kernel_v5_bwd, launched at :1190)",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
@@ -103,25 +124,58 @@ def time_ms(fn, reps=7, inner=10):
     return statistics.median(times)
 
 
-def active_pairs(rows, wt, spec, dl):
-    """(atom, voxel) pairs inside the cutoff for these kernel inputs, counting
-    only atoms with a nonzero weight: the pair work this data needs."""
+def time_graph_ms(fn, reps=7, inner=10):
+    """Device milliseconds per call of fn(): ``inner`` calls captured in one
+    CUDA graph, replayed ``reps`` times under CUDA events (median).  No host
+    time sits between the launches, so a kernel shorter than its wrapper's
+    host cost is timed by the card, not by the host."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def cutoff_pairs(rows, live, spec, dl):
+    """(pairs, voxels) for these kernel inputs, counting only the ``live``
+    (B, Vp) atoms: the (atom, voxel) pairs inside the cutoff (the pair work
+    this data needs), and the distinct (molecule, voxel) cells they reach
+    (the cotangent cells a backward must read)."""
     import torch
 
     res = float(spec.resolution)
     half = spec.width / 2.0
-    live = wt.abs().amax(dim=1) > 0  # (B, Vp)
+    dim = spec.dimension
+    mol = torch.nonzero(live)[:, 0]
     x, y, z, r2 = (rows[:, k][live].double() for k in range(4))
     if x.numel() == 0:
-        return 0
+        return 0, 0
     r = torch.sqrt(r2)
     n = int(torch.ceil(r.max() / res)) * 2 + 3
     offs = torch.arange(n, device=rows.device, dtype=torch.float64)
+    seen = torch.zeros(rows.shape[0] * dl * dim * dim, dtype=torch.bool, device=rows.device)
     total = 0
     for i in range(0, x.numel(), 4096):
         sl = slice(i, i + 4096)
         d2 = 0
-        for k, (p, size) in enumerate(((x[sl], dl), (y[sl], spec.dimension), (z[sl], spec.dimension))):
+        flat = mol[sl].reshape(-1, 1, 1, 1)
+        for k, (p, size) in enumerate(((x[sl], dl), (y[sl], dim), (z[sl], dim))):
             first = torch.floor((p - r[sl] + half) / res) - 1
             idx = first[:, None] + offs
             dk2 = (idx * res - half - p[:, None]) ** 2
@@ -129,8 +183,11 @@ def active_pairs(rows, wt, spec, dl):
             shape = [-1, 1, 1, 1]
             shape[1 + k] = n
             d2 = d2 + dk2.reshape(shape)
-        total += int((d2 <= r2[sl, None, None, None]).sum())
-    return total
+            flat = flat * size + idx.clamp(0, size - 1).to(torch.int64).reshape(shape)
+        hit = d2 <= r2[sl, None, None, None]
+        total += int(hit.sum())
+        seen[flat.expand(hit.shape)[hit]] = True
+    return total, int(seen.sum())
 
 
 def bound(rows, wt, ranges, out, spec, dl, gaussian):
@@ -142,13 +199,81 @@ def bound(rows, wt, ranges, out, spec, dl, gaussian):
     cutoff, then 3 exp + 2 mul + 2 per channel (gaussian) or 1 per channel
     (binary)."""
     c = wt.shape[1]
-    n_live = int((wt.abs().amax(dim=1) > 0).sum())
+    live = wt.abs().amax(dim=1) > 0
+    n_live = int(live.sum())
     n_bytes = n_live * (5 + c) * 4 + sum(t.numel() * t.element_size() for t in (ranges, out))
     per_pair = 8 + (3 + 2 + 2 * c if gaussian else c)
-    ops = active_pairs(rows, wt, spec, dl) * per_pair
+    ops = cutoff_pairs(rows, live, spec, dl)[0] * per_pair
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_bwd(rows, wt, ct, live, spec, dl, gaussian):
+    """The backward's bound on the terms of ``bound``: the cotangent cells
+    the live atoms reach, read once, in place of the grid written, and the
+    gradients written (grad_rows (B, 8, Vp) and grad_weights (B, C, Vp),
+    f32) in place of nothing; the five rows and C weights of the live atoms
+    are read as before.  Live atoms are the unmasked ones (``live``, (B,
+    Vp)): one whose weights are all zero still has a weight gradient.  Ops
+    per in-cutoff pair, from deposit_bwd.cu: 8 for the cutoff, then 3 exp +
+    2 mul for f, 4 per channel (two FMAs: the weight gradient and Q) and 10
+    for the coordinate and coef sums (gaussian), or 1 per channel
+    (binary)."""
+    b, c, vp = wt.shape
+    n_live = int(live.sum())
+    pairs, voxels = cutoff_pairs(rows, live, spec, dl)
+    n_bytes = n_live * (5 + c) * 4 + voxels * c * ct.element_size() + b * vp * (8 + c) * 4
+    per_pair = 8 + (3 + 2 + 4 * c + 10 if gaussian else c)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = pairs * per_pair / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grad_err(got, want):
+    """(max abs error, gradient scale max(1, max |want|)) over both gradients."""
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    return err, max([float(w.abs().max()) for w in want] + [1.0])
+
+
+class KernelTimer:
+    """Replaces the kernel wrappers that ``module`` calls by ones that record
+    a CUDA event pair around each call and keep the last call's arguments;
+    the originals come back on exit.  The launches still go through the
+    originals, so they count."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.events = {name: [] for name in names}
+        self.last = {}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = {name: getattr(self.module, name) for name in self.names}
+
+        def wrap(name, fn):
+            def timed(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                self.events[name].append((start, end))
+                self.last[name] = (args, kw)
+                return out
+            return timed
+
+        for name, fn in self.saved.items():
+            setattr(self.module, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+    def median_ms(self, name):
+        return statistics.median(start.elapsed_time(end) for start, end in self.events[name])
 
 
 def main() -> int:
@@ -161,9 +286,12 @@ def main() -> int:
 
     from molvoxel_torch import create_voxelizer
     from molvoxel_torch.core.config import GridSpec, small_atom_bucket
-    from molvoxel_torch.ops import _build, deposit
+    from molvoxel_torch.core.transform import apply_quaternion, quaternion_to_matrix, rotate
+    from molvoxel_torch.nn import VoxelCNN, VoxelizeLayer
+    from molvoxel_torch.ops import _build, autodiff, deposit
     from molvoxel_torch.ops.batch import random_transform_batch, voxelize_batch
     from molvoxel_torch.ops.dense import voxelize_dense
+    from molvoxel_torch.ops.voxelize import voxelize
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -214,9 +342,11 @@ def main() -> int:
         ("prot_dim48_gauss_f32", prot_xyz, 1, 1, 48, 0.5, "gaussian", torch.float32, None, False),
         ("prot_dim48_binary_f32", prot_xyz, 1, 1, 48, 0.5, "binary", torch.float32, None, False),
         ("prot_dim128_gauss_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim48_notrunc_f32", lig_xyz, 4, 2, 48, 0.5, "gaussian_notrunc", torch.float32, None, False),
+        ("prot_dim128_notrunc_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian_notrunc", torch.float32, None, False),
     ]
-    failed = []
-    for name, xyz, c, b, dim, res, density, odt, slab, channelwise in cases:
+
+    def prepared(xyz, c, b, dim, res, density, slab, channelwise):
         spec = GridSpec(resolution=res, dimension=dim)
         coords, w = inputs(xyz, b, c)
         kw = dict(spec=spec, density_type=density, sigma=0.5)
@@ -227,7 +357,11 @@ def main() -> int:
             coords, w, radii, _ = deposit.expand_channelwise(coords, w, radii, None)
         else:
             radii = torch.as_tensor(rng.uniform(0.8, 1.6, size=(b, xyz.shape[0])).astype(np.float32), device=dev)
-        rows, wt, ranges, dl, gaussian = deposit.prepare_batch(coords, w, radii, **kw)
+        return (spec,) + deposit.prepare_batch(coords, w, radii, **kw)
+
+    failed = []
+    for name, xyz, c, b, dim, res, density, odt, slab, channelwise in cases:
+        spec, rows, wt, ranges, dl, gaussian = prepared(xyz, c, b, dim, res, density, slab, channelwise)
         got = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
         torch.cuda.synchronize()
         ref32 = deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian)
@@ -242,14 +376,55 @@ def main() -> int:
     if failed:
         raise SystemExit(f"kernel_vs_plain failed: {failed}")
 
+    # 3b. backward kernel against its plain version, on the same inputs and cotangent
+    bwd_cases = [
+        # name, coords, C, B, dim, res, density, cotangent dtype, slab, channel-wise
+        ("headline_64lig_dim64_c4_f32", lig_xyz, 4, 64, 64, 0.5, "gaussian", torch.float32, None, False),
+        ("headline_64lig_dim64_c4_bf16", lig_xyz, 4, 64, 64, 0.5, "gaussian", torch.bfloat16, None, False),
+        ("prot_dim48_f32", prot_xyz, 1, 1, 48, 0.5, "gaussian", torch.float32, None, False),
+        ("prot_dim128_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim20_f32", lig_xyz, 4, 2, 20, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim40_f32", lig_xyz, 4, 2, 40, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim256_f32", lig_xyz, 4, 1, 256, 0.25, "gaussian", torch.float32, None, False),
+        ("lig_dim64_slab16_32", lig_xyz, 4, 2, 64, 0.5, "gaussian", torch.float32, (16, 32), False),
+        ("lig_dim48_channelwise9", lig_xyz, 9, 2, 48, 0.5, "gaussian", torch.float32, None, True),
+        ("lig_dim48_binary_f32", lig_xyz, 4, 2, 48, 0.5, "binary", torch.float32, None, False),
+        ("lig_dim40_binary_bf16", lig_xyz, 4, 2, 40, 0.5, "binary", torch.bfloat16, None, False),
+        ("lig_dim48_notrunc_f32", lig_xyz, 4, 2, 48, 0.5, "gaussian_notrunc", torch.float32, None, False),
+        ("prot_dim128_notrunc_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian_notrunc", torch.float32, None, False),
+    ]
+    ct_gen = torch.Generator(device=dev).manual_seed(0)
+    bwd_errs = []
+    for name, xyz, c, b, dim, res, density, ct_dt, slab, channelwise in bwd_cases:
+        spec, rows, wt, ranges, dl, gaussian = prepared(xyz, c, b, dim, res, density, slab, channelwise)
+        ct32 = torch.randn((b, wt.shape[1], dl, dim * dim), generator=ct_gen, device=dev)
+        ct = ct32.to(ct_dt)
+        got = deposit.deposit_bwd(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian)
+        torch.cuda.synchronize()
+        err, scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian))
+        tol = 1e-4 * scale
+        line = {"phase": "bwd_vs_plain", "case": name, "ct_dtype": str(ct_dt), "grad_scale": scale,
+                "max_abs_err": err, "tol": tol}
+        ok = err <= tol
+        if ct_dt != torch.float32:  # the low-precision lane against the f32 cotangent
+            lane_err, lane_scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct32, spec=spec, dl=dl,
+                                                                           gaussian=gaussian))
+            line.update(max_abs_err_vs_f32_ct=lane_err, tol_vs_f32_ct=3e-2 * lane_scale)
+            ok = ok and lane_err <= 3e-2 * lane_scale
+        line["ok"] = bool(ok and all(torch.isfinite(t).all() for t in got))
+        emit(line)
+        bwd_errs.append(err)
+        if not line["ok"]:
+            failed.append(name)
+    if failed:
+        raise SystemExit(f"bwd_vs_plain failed: {failed}")
+
     # 4. goldens on CUDA through the public API
     deposit.reset_launches()
     golden_failed = []
     n_goldens = 0
     for path in sorted(GOLDENS.glob("*.npz")):
         g = dict(np.load(path, allow_pickle=False))
-        if str(g["density"]) == "gaussian_notrunc":
-            continue
         n_goldens += 1
         vox = create_voxelizer(device=DEVICE, resolution=float(g["resolution"]), dimension=int(g["dimension"]),
                                radii_type=str(g["radii_type"]), density_type=str(g["density"]),
@@ -271,7 +446,7 @@ def main() -> int:
             golden_failed.append(path.stem)
     golden_launches = deposit.launches["deposit_fwd"]
     emit({"phase": "goldens", "count": n_goldens, "failed": golden_failed, "launches": golden_launches})
-    if golden_failed or n_goldens != 20 or golden_launches <= 0:
+    if golden_failed or n_goldens != 22 or golden_launches <= 0:
         raise SystemExit(f"goldens failed: {golden_failed}, count {n_goldens}, launches {golden_launches}")
 
     # 5. full-width main paths through the public API
@@ -282,8 +457,11 @@ def main() -> int:
         err = float((out.float() - ref.to(odt).float()).abs().max())
         tol = bar(odt, ref)
         ok = bool(torch.isfinite(out.float()).all()) and err <= tol and launches > 0
-        ms = time_ms(lambda: deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian,
-                                                 out_dtype=odt))
+        def launch():
+            return deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
+
+        ms = time_graph_ms(launch)
+        ms_back_to_back = time_ms(launch)
         plain_ms = time_ms(lambda: deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian,
                                                          out_dtype=odt), reps=5, inner=1)
         kout = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
@@ -292,8 +470,8 @@ def main() -> int:
         b_ms, b_by = bound(rows, wt, ranges, kout, spec, dl, gaussian)
         line = {"phase": "main_path", "row": row, "case": label, "shape": list(out.shape), "out_dtype": str(odt),
                 "launches": launches, "max_abs_err_vs_dense": err, "tol": tol, "ok": ok,
-                "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "kernel_vs_plain_err": kerr, "out_bytes": kout.numel() * kout.element_size()}
+                "kernel_ms": ms, "kernel_ms_back_to_back": ms_back_to_back, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "kernel_vs_plain_err": kerr, "out_bytes": kout.numel() * kout.element_size()}
         emit(line)
         if not ok or kerr > tol:
             raise SystemExit(f"main path {label} failed")
@@ -364,8 +542,22 @@ def main() -> int:
                                                                torch.ones(vp, device=dev), spec=spec, mask=p_mask)
         row1.append(check_and_time(1, f"forward_single_protein_dim{dim}_f32", out, ref, rows, wt, ranges, spec, dl,
                                    gaussian, torch.float32, launches))
-    # row 1 is timed on the headline batch; its launches count all three calls
-    kernels[1] = dict(row1[0], launches=sum(ln["launches"] for ln in row1),
+    # gaussian_notrunc on the protein at 128^3: the routing rule sends it to
+    # the kernel with the notrunc threshold row
+    vox = create_voxelizer(device=DEVICE, resolution=0.5, dimension=128, density_type="gaussian_notrunc")
+    deposit.reset_launches()
+    out = vox.forward_single(prot_np, prot["center"], 1.0)
+    torch.cuda.synchronize()
+    nt_launches = deposit.launches["deposit_fwd"]
+    ref = dense_ref(prot_xyz[None], torch.ones((1, prot_xyz.shape[0], 1), device=dev),
+                    torch.ones(prot_xyz.shape[0], device=dev), GridSpec(0.5, 128), "gaussian_notrunc")[0]
+    err = float((out - ref).abs().max())
+    emit({"phase": "main_path_check", "row": 1, "case": "forward_single_protein_dim128_notrunc_f32",
+          "launches": nt_launches, "max_abs_err_vs_dense": err, "tol": 1e-5})
+    if err > 1e-5 or nt_launches != 1:
+        raise SystemExit("main path protein notrunc failed")
+    # row 1 is timed on the headline batch; its launches count all four calls
+    kernels[1] = dict(row1[0], launches=sum(ln["launches"] for ln in row1) + nt_launches,
                       max_abs_err=max(ln["kernel_vs_plain_err"] for ln in row1))
 
     # rows 2 and 3: ragged and 256^3 grids, gaussian then binary
@@ -395,9 +587,136 @@ def main() -> int:
                 raise SystemExit(f"main path row {row} dim {dim_i} failed")
         kernels[row] = dict(line, max_abs_err=line["kernel_vs_plain_err"])
 
-    # 6. kernels line
+    # row 4: the training step at full width, through the backward kernel
+    torch.manual_seed(0)  # the CNN's initial weights
+    layer = VoxelizeLayer(spec64, augment=True, random_translation=0.5)
+    cnn = VoxelCNN(in_channels=4, features=64, widths=(16, 32, 64)).to(dev)
+    head = torch.nn.Linear(64, 1).to(dev)
+    labels = torch.as_tensor(rng.uniform(0.0, 5.0, size=64).astype(np.float32), device=dev)
+    quat = torch.zeros((64, 4), device=dev)
+    quat[:, 0] = 1.0
+    quat.requires_grad_()
+    shift = torch.zeros((64, 3), device=dev, requires_grad=True)
+    opt = torch.optim.Adam([*cnn.parameters(), *head.parameters(), quat, shift], lr=1e-3)
+    aug = torch.Generator().manual_seed(seed)
+
+    def train_step():
+        opt.zero_grad(set_to_none=True)
+        posed = rotate(b_coords, quaternion_to_matrix(quat / quat.norm(dim=-1, keepdim=True))) + shift[:, None, :]
+        grids = layer(posed, b_w, b_mask, generator=aug)
+        loss = torch.nn.functional.mse_loss(head(cnn(grids))[:, 0], labels)
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    deposit.reset_launches()
+    losses, step_ms = [], []
+    with KernelTimer(autodiff, ("deposit_fwd", "deposit_bwd")) as timer:
+        for i in range(9):  # two warm-ups, then seven timed steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(train_step())
+            torch.cuda.synchronize()
+            if i >= 2:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_launches = dict(deposit.launches)
+    steps = len(losses)
+    ok = (all(np.isfinite(losses)) and train_launches["deposit_fwd"] == steps
+          and train_launches["deposit_bwd"] == steps)
+    emit({"phase": "main_path_train", "row": 4, "case": "train_step_64lig_dim64_c4_f32_cnn16_32_64",
+          "steps": steps, "losses": losses, "launches": train_launches,
+          "fwd_launches_per_step": train_launches["deposit_fwd"] / steps,
+          "bwd_launches_per_step": train_launches["deposit_bwd"] / steps,
+          "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+          "in_step_fwd_ms_median": timer.median_ms("deposit_fwd"),
+          "in_step_bwd_ms_median": timer.median_ms("deposit_bwd"), "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("main path training step failed")
+    # where the step's device time goes: torch.profiler over two more steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            train_step()
+        torch.cuda.synchronize()
+    # only the device-side rows: a CPU op's row repeats the device time of the kernels it launched
+    by_name = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+                     reverse=True)
+    busy_ms = sum(us for us, _ in by_name) / 2 / 1e3
+    emit({"phase": "train_step_profile", "steps": 2, "device_busy_ms_per_step": busy_ms,
+          "device_busy_share_of_median_step": busy_ms / statistics.median(step_ms),
+          "top": [{"name": name[:90], "ms_per_step": us / 2 / 1e3} for us, name in by_name[:12]]})
+    # kernel 4 against its plain version and timed, on the last step's own inputs
+    (rows, wt, ct), bkw = timer.last["deposit_bwd"]
+    got = deposit.deposit_bwd(rows, wt, ct, **bkw)
+    kerr, scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct, **bkw))
+    # the layer's 64-atom molecules fill one chunk each and are not sorted, so the mask keeps its order
+    b_ms, b_by = bound_bwd(rows, wt, ct, b_mask, bkw["spec"], bkw["dl"], bkw["gaussian"])
+    line = {"phase": "main_path", "row": 4, "case": "train_step_64lig_dim64_c4_f32 (deposit_bwd)",
+            "launches": train_launches["deposit_bwd"], "grad_scale": scale, "kernel_vs_plain_err": kerr,
+            "tol": 1e-4 * scale, "kernel_ms": time_graph_ms(lambda: deposit.deposit_bwd(rows, wt, ct, **bkw)),
+            "kernel_ms_back_to_back": time_ms(lambda: deposit.deposit_bwd(rows, wt, ct, **bkw)),
+            "plain_ms": time_ms(lambda: deposit.deposit_bwd_plain(rows, wt, ct, **bkw), reps=5, inner=1),
+            "bound_ms": b_ms, "bound_by": b_by}
+    emit(line)
+    if kerr > 1e-4 * scale:
+        raise SystemExit("main path training step: backward kernel disagrees with its plain version")
+    kernels[4] = dict(line, max_abs_err=max([kerr] + bwd_errs))
+
+    # 6. convergence: examples/pose_optimize.py through the kernel backward
+    coords0 = torch.as_tensor((lig["coords"] - lig["coords"].mean(0)).astype(np.float32), device=dev)
+    spec32 = GridSpec(0.5, 32)
+    n_atoms = coords0.shape[0]
+    pose_w, pose_r = torch.ones((n_atoms, 1), device=dev), torch.ones(n_atoms, device=dev)
+    prng = np.random.default_rng(0)
+    u = prng.uniform(size=3)
+    q = np.array([np.sqrt(1 - u[0]) * np.sin(2 * np.pi * u[1]), np.sqrt(1 - u[0]) * np.cos(2 * np.pi * u[1]),
+                  np.sqrt(u[0]) * np.sin(2 * np.pi * u[2]), np.sqrt(u[0]) * np.cos(2 * np.pi * u[2])])
+    q = q * 0.25 + np.array([1.0, 0.0, 0.0, 0.0]) * 0.75  # a refinement-scale rotation, as in the example
+    q_true = torch.as_tensor((q / np.linalg.norm(q)).astype(np.float32), device=dev)
+    t_true = torch.as_tensor(prng.uniform(-0.8, 0.8, 3).astype(np.float32), device=dev)
+    target_coords = apply_quaternion(coords0, q_true) + t_true
+
+    def pose_grid(crd):
+        return voxelize(crd, pose_w, pose_r, spec=spec32, sigma=1.0)
+
+    target = pose_grid(target_coords)
+    q_p = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev, requires_grad=True)
+    t_p = torch.zeros(3, device=dev, requires_grad=True)
+    pose_opt = torch.optim.Adam([q_p, t_p], lr=3e-2)
+
+    def pose_coords():
+        return apply_quaternion(coords0, q_p / q_p.norm()) + t_p
+
+    def rmsd():
+        with torch.no_grad():
+            return float(((pose_coords() - target_coords) ** 2).sum(-1).mean().sqrt())
+
+    r0 = rmsd()
+    deposit.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(400):
+        pose_opt.zero_grad(set_to_none=True)
+        loss = ((pose_grid(pose_coords()) - target) ** 2).mean() * 1e4
+        loss.backward()
+        pose_opt.step()
+    torch.cuda.synchronize()
+    pose_s = time.perf_counter() - t0
+    r1 = rmsd()
+    final_loss = float(loss.detach())
+    ok = r1 < 0.05 and deposit.launches["deposit_bwd"] == 400 and np.isfinite(final_loss)
+    emit({"phase": "convergence", "case": "pose_optimize_lig61_dim32_sigma1", "steps": 400, "rmsd_start": r0,
+          "rmsd_end": r1, "bar": 0.05, "final_loss": final_loss, "launches": dict(deposit.launches),
+          "ms_per_step": pose_s / 400 * 1e3, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit(f"pose refinement did not converge: RMSD {r0:.4f} -> {r1:.4f}")
+
+    # 7. kernels line
     emit({"kernels": [
-        {"name": f"deposit_fwd (table row {row})", "route": "cuda", "source": "molvoxel_torch/csrc/deposit_fwd.cu",
+        {"name": f"{'deposit_bwd' if row == 4 else 'deposit_fwd'} (table row {row})", "route": "cuda",
+         "source": f"molvoxel_torch/csrc/{'deposit_bwd' if row == 4 else 'deposit_fwd'}.cu",
          "replaces": REPLACES[row], "launches": k["launches"], "max_abs_err": k["max_abs_err"],
          "ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": None, "timed_case": k["case"]}

@@ -14,8 +14,10 @@
 - ``precision=64`` computes in float64 on the plain dense path, which is
   the CPU parity lane: the CUDA kernel is float32, so precision=64 on a CUDA
   device raises unless the caller passes ``impl="dense"``.
-- Forward only: an input tensor that requires grad raises (the backward is
-  ROADMAP item B.2).
+- Not differentiable, as in the JAX package (whose ``forward_*`` return
+  numpy arrays): an input tensor that requires grad raises, naming the
+  differentiable entry points (``ops.voxelize.voxelize``,
+  ``ops.batch.voxelize_batch``, ``nn.VoxelizeLayer``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from ..core.config import DENSITY_TYPE_LIST, RADII_TYPE_LIST, GridSpec, VoxelizerConfig, small_atom_bucket
 from ..core.transform import RandomTransform, do_random_transform
-from ..ops.deposit import check_forward_only, check_kernel_dtype
+from ..ops.deposit import check_kernel_dtype
 from ..ops.voxelize import voxelize
 
 
@@ -48,7 +50,8 @@ def _generator(key) -> torch.Generator:
 
 
 class Voxelizer:
-    """Voxelizer on the CUDA deposit kernel (CPU: the plain dense path)."""
+    """Voxelizer on the CUDA deposit kernel (CPU: the plain dense path;
+    gaussian_notrunc: the separable product, see ops/voxelize.py)."""
 
     LIB = "PyTorch"
     RADII_TYPE_LIST = list(RADII_TYPE_LIST)
@@ -465,8 +468,12 @@ def _forward_only(*args):
     for a in args:
         if isinstance(a, (list, tuple)):
             _forward_only(*a)
-        else:
-            check_forward_only(a)
+        elif isinstance(a, torch.Tensor) and a.requires_grad:
+            raise NotImplementedError(
+                "Voxelizer.forward_* is not differentiable (as in the JAX package); for gradients call "
+                "molvoxel_torch.ops.voxelize.voxelize, molvoxel_torch.ops.batch.voxelize_batch or "
+                "molvoxel_torch.nn.VoxelizeLayer"
+            )
 
 
 def _host(array, dtype) -> np.ndarray:

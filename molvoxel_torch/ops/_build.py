@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` becomes ``build/molvoxel_torch/lib<name>-<hash>.so``
 beside the package (the hash covers the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded).  Libraries are built
-at first use; ``build_all()`` compiles every missing one.  The compiler's
+at first use; ``build_all()`` compiles every missing one, one nvcc process
+for each source, all started together.  The compiler's
 report (``-Xptxas -v``: registers, shared memory, spills) is kept next to
 each library as ``.log``.
 """
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "molvoxel_torch"
-SOURCES = ("deposit_fwd",)
+SOURCES = ("deposit_fwd", "deposit_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,23 +50,32 @@ def build_log(name: str) -> str:
 
 
 def build_all(names=SOURCES) -> dict[str, float]:
-    """Compile every missing library in ``names``; returns the seconds each
-    build took (0.0 for a library that was already built)."""
+    """Compile every missing library in ``names``, in parallel; returns the
+    seconds until each build finished (0.0 for a library that was already
+    built).  Every nvcc started is waited for before a failure raises."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    seconds = {}
+    t0 = time.perf_counter()
+    seconds = {name: 0.0 for name in names}
+    running = []
     for name in names:
         path = library_path(name)
-        t0 = time.perf_counter()
         if not path.exists():
             tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-            path.with_suffix(".log").write_text(proc.stdout)
-            os.replace(tmp, path)
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running.append((name, path, tmp, proc))
+    failed = []
+    for name, path, tmp, proc in running:
+        report, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{report}")
+            continue
+        path.with_suffix(".log").write_text(report)
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

@@ -1,10 +1,11 @@
 """Batched voxelization over padded molecule batches.
 
 center shift -> Morton presort -> per-molecule random rigid transform ->
-deposit.  On CUDA the batch is the kernel's leading grid axis; on the CPU
-the plain dense op runs per molecule.  Counterpart of
-``molvoxel_tpu/ops/batch.py`` (small-molecule packing and the sliced
-full-grid assembly are not ported yet: ROADMAP A.6).
+deposit.  On CUDA the batch is the kernels' leading grid axis; on the CPU
+the plain dense op runs per molecule; ``gaussian_notrunc`` routes as in
+ops/voxelize.py.  Every path is differentiable (the training path).
+Counterpart of ``molvoxel_tpu/ops/batch.py``; its small-molecule packing
+and the sliced full-grid assembly are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from .deposit import (
     voxelize_deposit_batch_channelwise,
 )
 from .dense import voxelize_dense, voxelize_dense_channelwise
-from .voxelize import resolve_impl
+from .separable import voxelize_separable_batch, voxelize_separable_batch_channelwise
+from .voxelize import notrunc_separable, resolve_impl
 
 
 def random_transform_batch(generator: torch.Generator | None, coords: torch.Tensor, random_translation: float,
@@ -74,21 +76,27 @@ def voxelize_batch(
     """
     check_density(density_type)
     odt = out_torch_dtype(out_dtype)
-    impl = resolve_impl(impl, coords)
+    resolved = resolve_impl(impl, coords)
+    separable = notrunc_separable(density_type, impl, resolved, coords.shape[1], spec, d_count, channelwise)
     if centers is not None:
         coords = coords - centers[:, None, :].to(coords.dtype)
 
     # Morton sort BEFORE the random transform: rigid transforms preserve
     # locality, so one sort serves every augmented sample.
-    if impl == "cuda" and not channelwise and coords.shape[1] > CHUNK and not presorted:
+    if resolved == "cuda" and not separable and not channelwise and coords.shape[1] > CHUNK and not presorted:
         r_atoms = radii if radii.ndim == 2 else torch.as_tensor(radii, dtype=torch.float32).expand(coords.shape[:2])
         coords, weights, radii, mask = sort_atoms_spatially(coords, weights, r_atoms, mask, spec)
         presorted = True
 
     coords = random_transform_batch(generator, coords, float(random_translation), random_rotation)
 
+    if separable:
+        fn = voxelize_separable_batch_channelwise if channelwise else voxelize_separable_batch
+        return fn(coords, weights, radii, spec=spec, sigma=sigma, mask=mask, d_offset=d_offset, d_count=d_count,
+                  out_dtype=odt)
+
     kw = dict(spec=spec, density_type=density_type, sigma=sigma, d_offset=d_offset, d_count=d_count)
-    if impl == "cuda":
+    if resolved == "cuda":
         fn = voxelize_deposit_batch_channelwise if channelwise else voxelize_deposit_batch
         return fn(coords, weights, radii, mask=mask, out_dtype=odt, presorted=presorted, **kw)
 

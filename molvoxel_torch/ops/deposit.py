@@ -1,26 +1,34 @@
-"""Forward deposit on the CUDA kernel ``csrc/deposit_fwd.cu``, and its plain version.
+"""Deposit on the CUDA kernels ``csrc/deposit_fwd.cu`` and ``csrc/deposit_bwd.cu``, and their plain versions.
 
-Counterpart of the forward half of ``molvoxel_tpu/ops/pallas_deposit.py``.
-The torch side does the O(V) bookkeeping:
+Counterpart of the forward and backward halves of
+``molvoxel_tpu/ops/pallas_deposit.py``.  The torch side does the O(V)
+bookkeeping:
 
 - pad the atom axis to whole 64-atom chunks with far-off, zero-weight atoms;
 - sort atoms along a Morton curve (``morton_keys``), so each chunk is
   spatially compact and its plane ranges are tight;
-- build the per-atom rows [x - d_offset*res, y, z, r^2, coef] (B, 8, Vp);
+- build the per-atom rows [x - d_offset*res, y, z, r2_thresh, coef] (B, 8, Vp),
+  where r2_thresh is r^2, or for gaussian_notrunc the radius beyond which
+  the density is negligible (``notrunc_r2_thresh``), and coef comes from the
+  true r^2;
 - compute, in closed form, the depth planes [d_lo, d_hi) that each
   (hw tile, atom chunk) pair can reach (``plane_ranges``);
 - expand channel-wise radii into virtual atoms (same position, radius r_c,
   weight only in channel c), so they run on the same kernel.
 
-``deposit_fwd`` launches the kernel on CUDA tensors and runs
-``deposit_plain`` (the same function in torch tensor ops, applying the same
-ranges) on CPU tensors.  Nothing on a CUDA tensor falls back to the plain
-version: a failed build or launch raises.
+``deposit_fwd`` (rows, weights -> grid) and ``deposit_bwd`` (cotangent grid
+-> gradients of rows and weights) launch their kernels on CUDA tensors and
+run ``deposit_plain`` / ``deposit_bwd_plain`` (the same functions in torch
+tensor ops) on CPU tensors.  Nothing on a CUDA tensor falls back to a plain
+version: a failed build or launch raises.  The wrappers below go through
+``ops.autodiff.deposit``, so they are differentiable in coordinates,
+weights and radii.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -33,9 +41,16 @@ FAR = 1e3  # coordinate of padding atoms: far outside any grid
 _PLAIN_BUDGET = 1 << 26  # elements of deposit_plain's (planes, H*W, chunk) temporary
 
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+_CT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+
+# gaussian_notrunc pruning (a copy of the JAX package's, pallas_deposit.py:65-86):
+# density contributions below NOTRUNC_EPS are dropped, which keeps the
+# worst-case additive error (V * eps) under 4e-6 for 3.3k-atom proteins.
+NOTRUNC_EPS = 1e-9
+_F32_ZERO_LOG = 103.972  # -ln(2^-150): exp(-x) rounds to f32 +0.0 for x above this
 
 # Launches of each kernel, counted by its wrapper where it launches.
-launches = {"deposit_fwd": 0}
+launches = {"deposit_fwd": 0, "deposit_bwd": 0}
 
 
 def reset_launches():
@@ -51,15 +66,6 @@ def out_torch_dtype(out_dtype) -> torch.dtype:
     return dt
 
 
-def check_forward_only(*tensors):
-    for t in tensors:
-        if isinstance(t, torch.Tensor) and t.requires_grad:
-            raise NotImplementedError(
-                "molvoxel_torch is forward-only so far: the backward kernel (the port of "
-                "_kernel_v5_bwd) and the autograd.Function are ROADMAP item B.2"
-            )
-
-
 def check_kernel_dtype(on_cuda: bool, dtype: torch.dtype):
     """The CUDA deposit computes in float32: float64 on the card raises
     rather than being cast down.  float64 is the CPU parity lane."""
@@ -71,15 +77,21 @@ def check_kernel_dtype(on_cuda: bool, dtype: torch.dtype):
 
 
 def check_density(density_type: str) -> bool:
-    """True for gaussian, False for binary; raises for anything else."""
-    if density_type == "gaussian_notrunc":
-        raise NotImplementedError(
-            "density_type='gaussian_notrunc' is not ported yet: it is ROADMAP item A.8 "
-            "(the notrunc threshold row plus the separable path)"
-        )
-    if density_type not in ("gaussian", "binary"):
+    """True for gaussian and gaussian_notrunc, False for binary; raises for
+    anything else."""
+    if density_type not in ("gaussian", "binary", "gaussian_notrunc"):
         raise ValueError(f"unknown density_type {density_type!r}")
-    return density_type == "gaussian"
+    return density_type != "binary"
+
+
+def notrunc_r2_thresh(r2, sigma: float, eps: float = NOTRUNC_EPS):
+    """Squared cutoff radius beyond which a no-cutoff gaussian is negligible.
+
+    exp(-0.5 * d2 / (sigma^2 r^2)) <= eps  <=>  d2 >= 2 sigma^2 ln(1/eps) r2.
+    eps=0.0 gives the f32 underflow radius (the density rounds to +0.0
+    beyond it), i.e. bit-level notrunc."""
+    log_inv = _F32_ZERO_LOG if eps <= 0.0 else min(math.log(1.0 / eps), _F32_ZERO_LOG)
+    return r2 * (2.0 * sigma * sigma * log_inv)
 
 
 # ------------------------------------------------------------- bookkeeping
@@ -169,10 +181,12 @@ def plane_ranges(coords_shifted: torch.Tensor, r2: torch.Tensor, spec: GridSpec,
 
 
 def prepare_deposit(coords, weights, radii, mask, spec: GridSpec, gaussian: bool, sigma: float,
-                    d_offset=0, d_count: int | None = None):
+                    d_offset=0, d_count: int | None = None, notrunc: bool = False):
     """Kernel inputs from padded (B, Vp, 3) / (B, Vp, C) / (B, Vp) arrays with
     Vp a multiple of CHUNK: atom rows (B, 8, Vp), weights (B, C, Vp),
-    ranges (B, nhwt, nvc, 2), and the local depth Dl."""
+    ranges (B, nhwt, nvc, 2), and the local depth Dl.  Torch ops only, so
+    autograd carries gradients of the rows and weights back to the inputs;
+    masked atoms get zero weight here, hence zero gradients."""
     dim = spec.dimension
     dl = dim if d_count is None else d_count
     res = float(spec.resolution)
@@ -181,12 +195,12 @@ def prepare_deposit(coords, weights, radii, mask, spec: GridSpec, gaussian: bool
     if mask is not None:
         wt = torch.where(mask[:, None, :], wt, torch.zeros((), dtype=torch.float32, device=wt.device))
         r2 = torch.where(mask, r2, torch.ones((), dtype=torch.float32, device=r2.device))
+    r2_th = notrunc_r2_thresh(r2, sigma) if notrunc else r2
     xs = coords[..., 0] - torch.tensor(float(d_offset), dtype=torch.float32, device=coords.device) * res
     zero = torch.zeros_like(r2)
     coef = (-(0.5 / (sigma * sigma))) / r2 if gaussian else zero
-    rows = torch.stack([xs, coords[..., 1], coords[..., 2], r2, coef, zero, zero, zero], dim=1).contiguous()
-    coords_shifted = torch.stack([xs, coords[..., 1], coords[..., 2]], dim=-1)
-    ranges = plane_ranges(coords_shifted, r2, spec, dl)
+    rows = torch.stack([xs, coords[..., 1], coords[..., 2], r2_th, coef, zero, zero, zero], dim=1).contiguous()
+    ranges = plane_ranges(rows[:, :3].detach().transpose(1, 2), r2_th.detach(), spec, dl)
     return rows, wt.contiguous(), ranges, dl
 
 
@@ -252,19 +266,128 @@ def deposit_plain(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tenso
     return out.to(out_dtype)
 
 
-def _kernel_lib():
-    lib = _build.load("deposit_fwd")
+def deposit_bwd_plain(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, spec: GridSpec, dl: int,
+                      gaussian: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's function in torch tensor ops: the VJP of
+    ``deposit_plain`` at cotangent ``ct`` (B, C, Dl, H*W) of any float dtype
+    -> (grad_rows (B, 8, Vp), grad_weights (B, C, Vp)), both f32.
+
+    With f = exp(coef * d^2) inside the cutoff (binary: 1) and
+    Q = sum_c ct[c] * w[c] at each voxel:
+
+      grad_weights[c] = sum_vox ct[c] * f
+      grad_rows[0:3]  = 2 coef * sum_vox Q f (x - g)     (dL/dx, dL/dy, dL/dz)
+      grad_rows[4]    = sum_vox Q f d^2                   (dL/dcoef)
+
+    Rows 3 and 5-7 are zero: the cutoff's boundary term is dropped (the
+    almost-everywhere gradient), and binary density has only grad_weights.
+    Each atom's difference (x - g) is taken per voxel; no moment sums about
+    the grid origin.  Chunked over 64-atom chunks and depth slabs; a chunk
+    visits only the planes its atoms' cutoff spheres can reach."""
+    b, _, vp = rows.shape
+    c = weights.shape[1]
+    dim = spec.dimension
+    hw = dim * dim
+    dev = rows.device
+    ct = ct.reshape(b, c, dl, hw).to(torch.float32)
+    res = torch.tensor(spec.resolution, dtype=torch.float32, device=dev)
+    half = torch.tensor(spec.width / 2.0, dtype=torch.float32, device=dev)
+    pd = torch.arange(dl, device=dev).to(torch.float32) * res - half
+    ph = torch.arange(dim, device=dev).to(torch.float32) * res - half
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    grad_rows = torch.zeros((b, 8, vp), dtype=torch.float32, device=dev)
+    grad_w = torch.zeros((b, c, vp), dtype=torch.float32, device=dev)
+    # planes each chunk can reach, widened by a plane on each side; the exact
+    # cutoff below decides
+    nvc = -(-vp // CHUNK)
+    reach = torch.sqrt(torch.clamp(rows[:, 3], min=0.0)) * 1.0001 + 1e-4
+    lo = torch.floor((rows[:, 0] - reach + half) / res) - 1.0
+    hi = torch.floor((rows[:, 0] + reach + half) / res) + 2.0
+    pad = nvc * CHUNK - vp
+    lo = torch.nn.functional.pad(lo, (0, pad), value=float(dl)).clamp(0, dl).reshape(b, nvc, CHUNK).amin(dim=2)
+    hi = torch.nn.functional.pad(hi, (0, pad), value=0.0).clamp(0, dl).reshape(b, nvc, CHUNK).amax(dim=2)
+    bounds = torch.stack([lo, hi], dim=-1).to(torch.int64).cpu()
+    slab = max(1, _PLAIN_BUDGET // (4 * hw * CHUNK))
+    for bi in range(b):
+        for vc in range(nvc):
+            dlo, dhi = int(bounds[bi, vc, 0]), int(bounds[bi, vc, 1])
+            if dhi <= dlo:
+                continue
+            sl = slice(vc * CHUNK, min((vc + 1) * CHUNK, vp))
+            x, y, z, th, coef = (rows[bi, k, sl] for k in range(5))
+            a = x.shape[0]
+            w = weights[bi, :, sl]
+            dy = ph[:, None] - y[None, :]
+            dz = ph[:, None] - z[None, :]
+            dy2, dz2 = dy * dy, dz * dz
+            dyz2 = (dy2[:, None, :] + dz2[None, :, :]).reshape(hw, a)
+            if gaussian:
+                eyz = (torch.exp(dy2 * coef)[:, None, :] * torch.exp(dz2 * coef)[None, :, :]).reshape(hw, a)
+                t_hw = torch.zeros((hw, a), dtype=torch.float32, device=dev)  # sum over planes of Q*f
+                sx = torch.zeros((a,), dtype=torch.float32, device=dev)
+                sd = torch.zeros((a,), dtype=torch.float32, device=dev)
+            gw = torch.zeros((c, a), dtype=torch.float32, device=dev)
+            for d0 in range(dlo, dhi, slab):
+                d1 = min(d0 + slab, dhi)
+                dx = pd[d0:d1, None] - x[None, :]
+                dx2 = dx * dx
+                cut = dyz2[None] <= (th[None, :] - dx2)[:, None, :]  # (S, H*W, A)
+                g = ct[bi, :, d0:d1].reshape(c, -1)  # (C, S*H*W)
+                if gaussian:
+                    f = torch.where(cut, eyz[None] * torch.exp(dx2 * coef)[:, None, :], zero)
+                else:
+                    f = cut.to(torch.float32)
+                gw += g @ f.reshape(-1, a)
+                if gaussian:
+                    t = f * (g.t() @ w).reshape(d1 - d0, hw, a)
+                    t_plane = t.sum(dim=1)
+                    sx -= (t_plane * dx).sum(dim=0)
+                    sd += (t_plane * dx2).sum(dim=0)
+                    t_hw += t.sum(dim=0)
+            grad_w[bi, :, sl] = gw
+            if gaussian:
+                sy = -(t_hw.reshape(dim, dim, a) * dy[:, None, :]).sum(dim=(0, 1))
+                sz = -(t_hw.reshape(dim, dim, a) * dz[None, :, :]).sum(dim=(0, 1))
+                sd += (t_hw * dyz2).sum(dim=0)
+                grad_rows[bi, 0, sl] = 2.0 * coef * sx
+                grad_rows[bi, 1, sl] = 2.0 * coef * sy
+                grad_rows[bi, 2, sl] = 2.0 * coef * sz
+                grad_rows[bi, 4, sl] = sd
+    return grad_rows, grad_w
+
+
+def _kernel_lib(name: str):
+    lib = _build.load(name)
     if not getattr(lib, "_molvoxel_typed", False):
-        lib.deposit_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
-            [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        lib.deposit_fwd.restype = ctypes.c_int
-        for fn in (lib.deposit_fwd_tile_hw, lib.deposit_fwd_chunk):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-        if (lib.deposit_fwd_tile_hw(), lib.deposit_fwd_chunk()) != (TILE_HW, CHUNK):
-            raise RuntimeError("deposit_fwd.cu tiles disagree with molvoxel_torch/ops/deposit.py")
+        if name == "deposit_fwd":
+            lib.deposit_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
+                [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            lib.deposit_fwd.restype = ctypes.c_int
+            for fn in (lib.deposit_fwd_tile_hw, lib.deposit_fwd_chunk):
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
+            if (lib.deposit_fwd_tile_hw(), lib.deposit_fwd_chunk()) != (TILE_HW, CHUNK):
+                raise RuntimeError("deposit_fwd.cu tiles disagree with molvoxel_torch/ops/deposit.py")
+        else:
+            lib.deposit_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
+                [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            lib.deposit_bwd.restype = ctypes.c_int
         lib._molvoxel_typed = True
     return lib
+
+
+def _check_kernel_inputs(fn: str, rows, weights):
+    """Shape, dtype, device and layout checks shared by both kernel wrappers."""
+    if rows.device.type != "cuda":
+        raise ValueError(f"{fn} runs on CUDA or CPU tensors, got {rows.device}")
+    b, eight, vp = rows.shape
+    if eight != 8 or vp % CHUNK:
+        raise ValueError(f"atom rows must be (B, 8, Vp) with Vp a multiple of {CHUNK}, got {tuple(rows.shape)}")
+    if weights.ndim != 3 or weights.shape[0] != b or weights.shape[2] != vp:
+        raise ValueError(f"weights must be (B={b}, C, Vp={vp}), got {tuple(weights.shape)}")
+    for name, t in (("rows", rows), ("weights", weights)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != rows.device:
+            raise ValueError(f"{name} must be a contiguous torch.float32 tensor on {rows.device}")
 
 
 def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor, *, spec: GridSpec, dl: int,
@@ -274,27 +397,19 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
     CUDA tensors launch ``csrc/deposit_fwd.cu``; CPU tensors run
     ``deposit_plain``.  Raises on anything the kernel does not take."""
     out_dtype = out_torch_dtype(out_dtype)
-    check_forward_only(rows, weights)
     if rows.device.type == "cpu":
         return deposit_plain(rows, weights, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_dtype)
-    if rows.device.type != "cuda":
-        raise ValueError(f"deposit_fwd runs on CUDA or CPU tensors, got {rows.device}")
-    b, eight, vp = rows.shape
+    _check_kernel_inputs("deposit_fwd", rows, weights)
+    b, _, vp = rows.shape
     dim = spec.dimension
     nhwt = -(-dim * dim // TILE_HW)
-    if eight != 8 or vp % CHUNK:
-        raise ValueError(f"atom rows must be (B, 8, Vp) with Vp a multiple of {CHUNK}, got {tuple(rows.shape)}")
-    if weights.ndim != 3 or weights.shape[0] != b or weights.shape[2] != vp:
-        raise ValueError(f"weights must be (B={b}, C, Vp={vp}), got {tuple(weights.shape)}")
     if tuple(ranges.shape) != (b, nhwt, vp // CHUNK, 2):
         raise ValueError(f"ranges must be {(b, nhwt, vp // CHUNK, 2)}, got {tuple(ranges.shape)}")
-    for name, t, dt in (("rows", rows, torch.float32), ("weights", weights, torch.float32),
-                        ("ranges", ranges, torch.int32)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != rows.device:
-            raise ValueError(f"{name} must be a contiguous {dt} tensor on {rows.device}")
+    if ranges.dtype != torch.int32 or not ranges.is_contiguous() or ranges.device != rows.device:
+        raise ValueError(f"ranges must be a contiguous torch.int32 tensor on {rows.device}")
     c = weights.shape[1]
     out = torch.empty((b, c, dl, dim * dim), dtype=out_dtype, device=rows.device)
-    lib = _kernel_lib()
+    lib = _kernel_lib("deposit_fwd")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     with torch.cuda.device(rows.device):
         rc = lib.deposit_fwd(
@@ -306,6 +421,44 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
         raise RuntimeError(f"deposit_fwd kernel launch failed with cudaError {rc}")
     launches["deposit_fwd"] += 1
     return out
+
+
+def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, spec: GridSpec, dl: int,
+                gaussian: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of a deposit at cotangent ``ct`` (B, C, Dl, H*W) ->
+    (grad_rows (B, 8, Vp), grad_weights (B, C, Vp)), f32; see
+    ``deposit_bwd_plain`` for the function.
+
+    CUDA tensors launch ``csrc/deposit_bwd.cu``, which reads a float32 or a
+    bfloat16 cotangent (an fp8 one is widened to bf16 first, exactly);
+    CPU tensors run ``deposit_bwd_plain``.  Raises on anything the kernel
+    does not take."""
+    if rows.device.type == "cpu":
+        return deposit_bwd_plain(rows, weights, ct, spec=spec, dl=dl, gaussian=gaussian)
+    _check_kernel_inputs("deposit_bwd", rows, weights)
+    b, _, vp = rows.shape
+    c = weights.shape[1]
+    dim = spec.dimension
+    if ct.dtype == torch.float8_e4m3fn:
+        ct = ct.to(torch.bfloat16)
+    if ct.numel() != b * c * dl * dim * dim or ct.shape[:2] != (b, c):
+        raise ValueError(f"cotangent must be (B={b}, C={c}, Dl={dl}, {dim}*{dim}), got {tuple(ct.shape)}")
+    if ct.dtype not in _CT_KINDS or not ct.is_contiguous() or ct.device != rows.device:
+        raise ValueError(f"cotangent must be a contiguous float32 or bfloat16 tensor on {rows.device}")
+    grad_rows = torch.empty((b, 8, vp), dtype=torch.float32, device=rows.device)
+    grad_w = torch.empty((b, c, vp), dtype=torch.float32, device=rows.device)
+    lib = _kernel_lib("deposit_bwd")
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    with torch.cuda.device(rows.device):
+        rc = lib.deposit_bwd(
+            rows.data_ptr(), weights.data_ptr(), ct.data_ptr(), grad_rows.data_ptr(), grad_w.data_ptr(),
+            b, vp, c, dl, dim, float(spec.resolution), float(spec.width / 2.0),
+            int(gaussian), _CT_KINDS[ct.dtype], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"deposit_bwd kernel launch failed with cudaError {rc}")
+    launches["deposit_bwd"] += 1
+    return grad_rows, grad_w
 
 
 # ------------------------------------------------------------- wrappers
@@ -328,9 +481,8 @@ def _pad_atoms(coords, weights, radii, mask):
 def prepare_batch(coords, weights, radii, *, spec: GridSpec, density_type: str = "gaussian", sigma: float = 0.5,
                   mask=None, d_offset=0, d_count: int | None = None, presorted: bool = False):
     """Padded, sorted kernel inputs for a batch: (rows, weights, ranges, Dl,
-    gaussian), exactly what voxelize_deposit_batch hands to deposit_fwd."""
+    gaussian), exactly what voxelize_deposit_batch hands to the kernels."""
     gaussian = check_density(density_type)
-    check_forward_only(coords, weights, radii)
     check_kernel_dtype(coords.is_cuda, coords.dtype)
     b = weights.shape[0]
     radii = torch.as_tensor(radii, dtype=torch.float32, device=coords.device)
@@ -339,7 +491,8 @@ def prepare_batch(coords, weights, radii, *, spec: GridSpec, density_type: str =
     coords, weights, radii, mask = _pad_atoms(coords.to(torch.float32), weights.to(torch.float32), radii, mask)
     if coords.shape[1] > CHUNK and not presorted:
         coords, weights, radii, mask = sort_atoms_spatially(coords, weights, radii, mask, spec)
-    rows, wt, ranges, dl = prepare_deposit(coords, weights, radii, mask, spec, gaussian, sigma, d_offset, d_count)
+    rows, wt, ranges, dl = prepare_deposit(coords, weights, radii, mask, spec, gaussian, sigma, d_offset, d_count,
+                                           notrunc=density_type == "gaussian_notrunc")
     return rows, wt, ranges, dl, gaussian
 
 
@@ -351,13 +504,17 @@ def voxelize_deposit_batch(coords, weights, radii, *, spec: GridSpec, density_ty
     coords (B, V, 3); weights (B, V, C); radii (V,) shared or (B, V); mask
     (B, V) bool or None.  ``presorted``: atoms already arrive in Morton
     order (ops.batch sorts before the random transform), so no sort here.
-    Counterpart of voxelize_pallas_batch."""
+    Differentiable in coords, weights and radii: the forward kernel runs
+    forward, the backward kernel backward.  Counterpart of
+    voxelize_pallas_batch and its custom VJP (voxelize_pallas_bwd_batch)."""
+    from .autodiff import deposit  # autodiff imports this module
+
     b, _, c = weights.shape
     rows, wt, ranges, dl, gaussian = prepare_batch(
         coords, weights, radii, spec=spec, density_type=density_type, sigma=sigma, mask=mask,
         d_offset=d_offset, d_count=d_count, presorted=presorted,
     )
-    out = deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_dtype)
+    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype))
     return out.reshape(b, c, dl, spec.dimension, spec.dimension)
 
 

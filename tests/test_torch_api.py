@@ -199,13 +199,15 @@ def test_auto_impl_picks_by_device_and_float64_cuda_raises(monkeypatch, rng, cha
 
 @pytest.mark.parametrize("arg", ["coords", "features", "center", "batch"])
 def test_inputs_that_require_grad_raise(rng, arg):
-    """Forward only: the API raises rather than cutting a tensor from the graph."""
+    """The public forward_* are not differentiable (as in the JAX package):
+    they raise rather than cutting a tensor from the graph, naming the
+    differentiable entry points."""
     vox = create_voxelizer(dimension=16, device="cpu")
     coords = torch.as_tensor(rng.uniform(-3, 3, size=(10, 3)).astype(np.float32))
     features = torch.as_tensor(rng.uniform(0, 1, size=(10, 2)).astype(np.float32))
     center = torch.zeros(3)
     {"coords": coords, "features": features, "center": center, "batch": features}[arg].requires_grad_()
-    with pytest.raises(NotImplementedError, match="B.2"):
+    with pytest.raises(NotImplementedError, match="ops.batch.voxelize_batch or molvoxel_torch.nn.VoxelizeLayer"):
         if arg == "batch":
             vox.forward_batch([(coords.detach(), features)])
         else:
@@ -219,9 +221,18 @@ def test_cuda_impl_on_cpu_tensors_raises(rng):
 
 
 def test_gaussian_notrunc_names_its_roadmap_item(rng):
+    """gaussian_notrunc, which raised before it was ported, runs on the CPU
+    through the separable product, and impl="dense" runs the dense path."""
+    from molvoxel_torch.ops.dense import voxelize_dense
+
+    coords = rng.uniform(-3, 3, size=(10, 3)).astype(np.float32)
     vox = create_voxelizer(dimension=16, density_type="gaussian_notrunc", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item A.8"):
-        vox.forward_single(rng.uniform(-3, 3, size=(10, 3)).astype(np.float32), None, 1.0)
+    out = vox.forward_single(coords, None, 1.0)
+    dense = create_voxelizer(dimension=16, density_type="gaussian_notrunc", device="cpu", impl="dense")
+    want = voxelize_dense(torch.as_tensor(coords), torch.ones(10, 1), torch.ones(10), spec=vox.spec,
+                          density_type="gaussian_notrunc")
+    np.testing.assert_allclose(dense.forward_single(coords, None, 1.0).numpy(), want.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=2e-5)
 
 
 def test_public_exports():
@@ -234,6 +245,7 @@ def test_public_exports():
 def test_import_loads_no_jax_and_no_molvoxel_tpu():
     code = (
         "import sys, molvoxel_torch, molvoxel_torch.ops.deposit, molvoxel_torch.ops.batch, "
+        "molvoxel_torch.ops.autodiff, molvoxel_torch.ops.separable, molvoxel_torch.nn, "
         "molvoxel_torch.data.pipeline, molvoxel_torch.core.state; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'molvoxel_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -150,12 +150,23 @@ def test_expand_channelwise_layout():
 
 
 def test_forward_only_and_unported_density_raise(rng):
+    """What these inputs raised before the backward and gaussian_notrunc were
+    ported now runs: a gradient flows to every input, notrunc deposits (with
+    its threshold row); a bad out_dtype still raises."""
     coords, weights, radii, mask = _t(*_cloud(rng))
     spec = TSpec(0.5, 12)
-    with pytest.raises(NotImplementedError, match="B.2"):
-        deposit.voxelize_deposit_batch(coords.requires_grad_(), weights, radii, spec=spec, mask=mask)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        deposit.voxelize_deposit_batch(coords.detach(), weights, radii, spec=spec, density_type="gaussian_notrunc")
+    out = deposit.voxelize_deposit_batch(coords.requires_grad_(), weights.requires_grad_(), radii.requires_grad_(),
+                                         spec=spec, mask=mask)
+    out.sum().backward()
+    assert all(float(t.grad.abs().max()) > 0 for t in (coords, weights, radii))
+    nt = deposit.voxelize_deposit_batch(coords.detach(), weights.detach(), radii.detach(), spec=spec, mask=mask,
+                                        density_type="gaussian_notrunc")
+    assert nt.shape == out.shape and bool((nt >= out.detach() - 1e-6).all()) and float((nt - out.detach()).max()) > 0
+    rows, *_ = deposit.prepare_batch(coords.detach(), weights, radii.detach(), spec=spec, mask=mask,
+                                     density_type="gaussian_notrunc", presorted=True)
+    r2 = torch.where(mask, radii.detach() ** 2, torch.ones(()))
+    assert torch.allclose(rows[:, 3, :200], deposit.notrunc_r2_thresh(r2, 0.5))
+    assert torch.allclose(rows[:, 4, :200], -2.0 / r2)  # coef from the true r^2
     with pytest.raises(ValueError, match="out_dtype"):
         deposit.voxelize_deposit_batch(coords.detach(), weights, radii, spec=spec, out_dtype="float16")
 
@@ -175,4 +186,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("deposit_fwd")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("deposit_bwd")
     assert _build.library_path("deposit_fwd").name.startswith("libdeposit_fwd-")
+    assert _build.SOURCES == ("deposit_fwd", "deposit_bwd")

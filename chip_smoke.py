@@ -12,9 +12,14 @@ exit code:
 3. kernel_vs_plain: each forward case against ``deposit_plain`` on the
    card, on the same prepared inputs, in the working type (f32 1e-5, bf16
    2^-7*max, fp8 2^-3*max): aligned grids (dims 48, 64), ragged grids (dims
-   20, 40), a 256^3 grid, the 61-atom ligand and the 3262-atom protein of
-   tests/goldens, a depth slab, channel-wise radii and the notrunc
-   threshold row.  Then bwd_vs_plain: the backward kernel against
+   20, 33, 40, 50), a 256^3 grid, the 61-atom ligand and the 3262-atom
+   protein of tests/goldens, depth slabs (one at planes 5..31, not a whole
+   number of bricks), channel-wise radii, C = 1, 6, 9 and 12 (more than one
+   channel group), a batch of 512 ligands at 32^3 and the notrunc
+   threshold row; every case is launched twice and the two grids must be
+   bitwise equal.  An all-masked batch at the headline shape must give an
+   exact zero grid; it is timed as it is and with its atoms parked off the
+   grid (the kernel's store floor).  Then bwd_vs_plain: the backward kernel against
    ``deposit_bwd_plain`` on the same inputs and cotangent: the headline
    batch (f32 and bf16 cotangent), the protein at 48^3 and 128^3, dims 20
    and 40, the ligand at 256^3, a depth slab, channel-wise radii (9
@@ -39,10 +44,12 @@ exit code:
      poses (quaternion and shift): 2 warm-up and 7 timed steps, one forward
      and one backward launch each.
    Each path's output is checked against the plain path, and each kernel
-   is timed (CUDA events over 10 back-to-back launches, median of 7) beside
-   its plain version at that path's shapes.  The headline ``forward_batch``
-   call and the training step are also timed on the host clock (median,
-   minimum and maximum of 7).
+   is timed (CUDA-graph replay of 10 launches, median of 7; and back to
+   back) beside its plain version at that path's shapes.  Forward lines
+   carry the launch's brick, blocks, waves (blocks / (resident blocks per
+   SM x SMs)) and write rate (grid bytes / kernel time).  The headline
+   ``forward_batch`` call and the training step are also timed on the host
+   clock (median, minimum and maximum of 7).
 6. convergence: examples/pose_optimize.py through the kernel backward, the
    61-atom golden ligand at 32^3, sigma 1.0, 400 Adam steps at 3e-2 on
    (quaternion, shift) from a hidden pose drawn from a numpy seed; it must
@@ -344,7 +351,26 @@ def main() -> int:
         ("prot_dim128_gauss_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian", torch.float32, None, False),
         ("lig_dim48_notrunc_f32", lig_xyz, 4, 2, 48, 0.5, "gaussian_notrunc", torch.float32, None, False),
         ("prot_dim128_notrunc_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian_notrunc", torch.float32, None, False),
+        # brick edges: ragged dims, a slab that is not a whole number of bricks
+        ("lig_dim33_gauss_f32", lig_xyz, 4, 2, 33, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim33_binary_bf16", lig_xyz, 4, 2, 33, 0.5, "binary", torch.bfloat16, None, False),
+        ("lig_dim50_gauss_bf16", lig_xyz, 4, 2, 50, 0.5, "gaussian", torch.bfloat16, None, False),
+        ("lig_dim50_gauss_fp8", lig_xyz, 4, 2, 50, 0.5, "gaussian", torch.float8_e4m3fn, None, False),
+        ("lig_dim64_slab5_27_f32", lig_xyz, 4, 2, 64, 0.5, "gaussian", torch.float32, (5, 27), False),
+        ("lig_dim64_slab5_27_bf16", lig_xyz, 4, 8, 64, 0.5, "gaussian", torch.bfloat16, (5, 27), False),
+        # channel groups
+        ("lig_dim48_c1_f32", lig_xyz, 1, 2, 48, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim48_c6_bf16", lig_xyz, 6, 2, 48, 0.5, "gaussian", torch.bfloat16, None, False),
+        ("lig_dim48_c6_fp8", lig_xyz, 6, 2, 48, 0.5, "gaussian", torch.float8_e4m3fn, None, False),
+        ("lig_dim48_c9_f32", lig_xyz, 9, 2, 48, 0.5, "gaussian", torch.float32, None, False),
+        ("lig_dim48_c9_binary_f32", lig_xyz, 9, 2, 48, 0.5, "binary", torch.float32, None, False),
+        ("lig_dim40_c12_bf16", lig_xyz, 12, 2, 40, 0.5, "gaussian", torch.bfloat16, None, False),
+        # a large batch of small grids
+        ("lig512_dim32_gauss_bf16", lig_xyz, 4, 512, 32, 0.5, "gaussian", torch.bfloat16, None, False),
     ]
+
+    def same_bits(x, y):
+        return torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
 
     def prepared(xyz, c, b, dim, res, density, slab, channelwise):
         spec = GridSpec(resolution=res, dimension=dim)
@@ -363,15 +389,42 @@ def main() -> int:
     for name, xyz, c, b, dim, res, density, odt, slab, channelwise in cases:
         spec, rows, wt, ranges, dl, gaussian = prepared(xyz, c, b, dim, res, density, slab, channelwise)
         got = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
+        again = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
         torch.cuda.synchronize()
         ref32 = deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian)
         ref = ref32.to(odt).float()
         err = float((got.float() - ref).abs().max())
         tol = bar(odt, ref32)
-        ok = bool(np.isfinite(err) and err <= tol and torch.isfinite(got.float()).all())
+        bitwise = same_bits(got, again)
+        ok = bool(np.isfinite(err) and err <= tol and torch.isfinite(got.float()).all() and bitwise)
         emit({"phase": "kernel_vs_plain", "case": name, "shape": list(got.shape), "out_dtype": str(odt),
-              "max_abs_err": err, "tol": tol, "ok": ok})
+              "max_abs_err": err, "tol": tol, "two_launches_bitwise_equal": bitwise,
+              "brick": deposit.brick(b, wt.shape[1], dl, dim, odt)._asdict(), "ok": ok})
         if not ok:
+            failed.append(name)
+    # an all-masked batch at the headline shape: an exact zero grid.  Masked
+    # atoms keep their places and r^2 = 1, so their chunks are staged and
+    # rejected; parked off the grid (as padding atoms are), no chunk is
+    # active, and the time is the kernel's store floor
+    spec64 = GridSpec(0.5, 64)
+    lig64 = torch.zeros((64, 64, 3), device=dev)
+    lig64[:, :61] = lig_xyz
+    w64 = torch.ones((64, 64, 4), device=dev)
+    none = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    for name, xyz in (("all_masked_64lig_dim64_c4_bf16", lig64),
+                      ("all_masked_parked_64lig_dim64_c4_bf16", torch.full_like(lig64, deposit.FAR))):
+        rows, wt, ranges, dl, gaussian = deposit.prepare_batch(xyz, w64, torch.ones(64, device=dev), spec=spec64,
+                                                               mask=none, presorted=True)
+        got = deposit.deposit_fwd(rows, wt, ranges, spec=spec64, dl=dl, gaussian=gaussian, out_dtype=torch.bfloat16)
+        zero = bool((got.float() == 0).all()) and not bool(torch.signbit(got.float()).any())
+        ms = time_graph_ms(lambda: deposit.deposit_fwd(rows, wt, ranges, spec=spec64, dl=dl, gaussian=gaussian,
+                                                       out_dtype=torch.bfloat16))
+        out_bytes = got.numel() * got.element_size()
+        emit({"phase": "kernel_vs_plain", "case": name, "shape": list(got.shape), "exact_zero": zero,
+              "active_chunk_tiles": int((ranges[..., 1] > ranges[..., 0]).sum()), "kernel_ms": ms,
+              "write_tb_s": out_bytes / (ms * 1e-3) / 1e12, "byte_bound_ms": out_bytes / HBM_BYTES_PER_S * 1e3,
+              "ok": zero})
+        if not zero:
             failed.append(name)
     if failed:
         raise SystemExit(f"kernel_vs_plain failed: {failed}")
@@ -468,10 +521,15 @@ def main() -> int:
         kerr = float((kout.float() - deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian,
                                                            out_dtype=odt).float()).abs().max())
         b_ms, b_by = bound(rows, wt, ranges, kout, spec, dl, gaussian)
+        out_bytes = kout.numel() * kout.element_size()
+        info = deposit.fwd_launch_info(wt.shape[0], wt.shape[1], wt.shape[2], dl, spec.dimension, gaussian, odt)
         line = {"phase": "main_path", "row": row, "case": label, "shape": list(out.shape), "out_dtype": str(odt),
                 "launches": launches, "max_abs_err_vs_dense": err, "tol": tol, "ok": ok,
                 "kernel_ms": ms, "kernel_ms_back_to_back": ms_back_to_back, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "kernel_vs_plain_err": kerr, "out_bytes": kout.numel() * kout.element_size()}
+                "bound_by": b_by, "kernel_vs_plain_err": kerr, "out_bytes": out_bytes,
+                "blocks": info["blocks"], "resident_blocks_per_sm": info["resident_per_sm"], "waves": info["waves"],
+                "brick": {k: info[k] for k in ("dt", "ht", "kct", "run", "threads", "passes")},
+                "write_tb_s": out_bytes / (ms * 1e-3) / 1e12}
         emit(line)
         if not ok or kerr > tol:
             raise SystemExit(f"main path {label} failed")

@@ -11,8 +11,10 @@ bookkeeping:
   where r2_thresh is r^2, or for gaussian_notrunc the radius beyond which
   the density is negligible (``notrunc_r2_thresh``), and coef comes from the
   true r^2;
+- plan the kernel's bricks (``brick``): dt depth planes x ht whole h rows
+  a block, chosen per grid;
 - compute, in closed form, the depth planes [d_lo, d_hi) that each
-  (hw tile, atom chunk) pair can reach (``plane_ranges``);
+  (tile of ht rows, atom chunk) pair can reach (``plane_ranges``);
 - expand channel-wise radii into virtual atoms (same position, radius r_c,
   weight only in channel c), so they run on the same kernel.
 
@@ -29,14 +31,19 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..core.config import GridSpec, round_up
 from . import _build
 
-TILE_HW = 128  # flat h*w voxels per kernel block (kTileHW in deposit_fwd.cu)
 CHUNK = 64  # atoms per chunk (kChunk in deposit_fwd.cu)
+BRICK_THREADS = 256  # threads of the largest forward block (kMaxThreads)
+ACC_MAX = 32  # f32 accumulators a forward thread holds (kAccMax)
+STORE_BYTES = 16  # bytes of output a forward thread stores at once (kStoreBytes)
+TARGET_BLOCKS = 16 * 132  # bricks shrink until a launch has this many blocks: 16 per SM of an H100 SXM
+MIN_LANES = 24  # ... or until a smaller brick would leave most of a warp idle (f32 runs)
 FAR = 1e3  # coordinate of padding atoms: far outside any grid
 _PLAIN_BUDGET = 1 << 26  # elements of deposit_plain's (planes, H*W, chunk) temporary
 
@@ -130,33 +137,87 @@ def sort_atoms_spatially(coords, weights, radii, mask, spec: GridSpec):
     return coords, weights, radii, mask
 
 
-def plane_ranges(coords_shifted: torch.Tensor, r2: torch.Tensor, spec: GridSpec, dl: int) -> torch.Tensor:
-    """(B, nhwt, nvc, 2) int32 [d_lo, d_hi) depth planes each (hw tile, atom
-    chunk) pair can reach, in closed form, at the kernel's tiles.
+def _channel_tile(c: int, run: int) -> int:
+    """Channels a forward block computes: the smallest of 1, 2, 4, 8 that
+    holds ``c``, at most what the accumulator budget allows at this run."""
+    cap = min(8, ACC_MAX // run)
+    return next((k for k in (1, 2, 4, 8) if k >= c and k <= cap), cap)
 
-    Tile ``t`` covers flat voxels [t*TILE_HW, min((t+1)*TILE_HW, H*W)), so
-    rows h_lo..h_hi and every column.  An atom's minimum squared yz distance
-    to the tile is its distance to that box (a lower bound on every voxel's);
-    the planes it reaches solve |x - d*res + w/2| <= sqrt(r^2 - min).  A few
-    ulps of slack make the interval only ever wider.  ``coords_shifted`` has
-    x pre-shifted by d_offset*res; ``r2`` is (B, Vp) with masked atoms at 1.
-    Where tiles are whole h rows this is _plane_ranges_closed of the JAX
-    package with hrows = TILE_HW // W and a = CHUNK.
+
+def brick_rows(b: int, c: int, dl: int, dim: int) -> tuple[int, int]:
+    """(dt, ht): the depth planes and whole h rows of a forward block.
+
+    The largest brick that one block's threads cover in the passes their
+    accumulators allow, for every output dtype, halved until the launch
+    has ``TARGET_BLOCKS`` blocks, or until half of it would hold fewer than
+    ``MIN_LANES`` runs of f32.  More blocks shorten each block's serial walk
+    over its atom chunks (what sets a protein's time); a brick of a few
+    runs leaves its warp idle.  Depends on the shapes only, so the plane
+    ranges (``plane_ranges`` at ``ht``) are the same whatever the output
+    dtype."""
+    cap = None
+    for run in (STORE_BYTES // 4, STORE_BYTES // 2, STORE_BYTES):
+        nrun = -(-dim // run)
+        fits = (BRICK_THREADS // nrun) * (ACC_MAX // (run * _channel_tile(c, run)))
+        cap = fits if cap is None else min(cap, fits)
+    nct = -(-c // _channel_tile(c, STORE_BYTES // 4))
+    rows = max(cap, 1)
+    while True:
+        ht = min(dim, rows)
+        dt = min(dl, rows // ht)
+        if b * nct * -(-dl // dt) * -(-dim // ht) >= TARGET_BLOCKS or (rows // 2) * -(-dim // 4) < MIN_LANES:
+            return dt, ht
+        rows //= 2
+
+
+class Brick(NamedTuple):
+    """A forward launch: dt planes x ht rows x all W columns of kct channels
+    a block, ``threads`` a block, each thread owning ``passes`` runs of
+    ``run`` consecutive w."""
+
+    dt: int
+    ht: int
+    kct: int
+    run: int
+    threads: int
+    passes: int
+
+
+def brick(b: int, c: int, dl: int, dim: int, out_dtype=torch.float32) -> Brick:
+    """The forward kernel's launch for these shapes (see ``brick_rows``)."""
+    dt, ht = brick_rows(b, c, dl, dim)
+    run = STORE_BYTES // out_torch_dtype(out_dtype).itemsize
+    kct = _channel_tile(c, run)
+    units = dt * ht * -(-dim // run)
+    threads = min(BRICK_THREADS, round_up(units, 32))
+    passes = -(-units // threads)
+    if passes * run * kct > ACC_MAX:
+        raise ValueError(f"a {dim}-wide grid row exceeds the forward kernel's accumulators")
+    return Brick(dt, ht, kct, run, threads, passes)
+
+
+def plane_ranges(coords_shifted: torch.Tensor, r2: torch.Tensor, spec: GridSpec, dl: int, ht: int) -> torch.Tensor:
+    """(B, nht, nvc, 2) int32 [d_lo, d_hi) depth planes each (row tile, atom
+    chunk) pair can reach, in closed form, at the kernel's bricks.
+
+    Tile ``t`` covers h rows [t*ht, (t+1)*ht) and every column.  An atom's
+    minimum squared yz distance to the tile is its distance to that box (a
+    lower bound on every voxel's); the planes it reaches solve
+    |x - d*res + w/2| <= sqrt(r^2 - min).  A few ulps of slack make the
+    interval only ever wider.  ``coords_shifted`` has x pre-shifted by
+    d_offset*res; ``r2`` is (B, Vp) with masked atoms at 1.  This is
+    _plane_ranges_closed of the JAX package with hrows = ht and a = CHUNK,
+    for every dim: the last tile's box runs past the grid as the JAX one
+    does, which only widens its ranges.
     """
     b, vp, _ = coords_shifted.shape
     dev = coords_shifted.device
-    dim = spec.dimension
-    hw = dim * dim
-    nhwt = -(-hw // TILE_HW)
+    nht = -(-spec.dimension // ht)
     res = float(spec.resolution)
     lb = float(spec.lower_bound)
     ub = float(spec.upper_bound)
-    first = torch.arange(nhwt, device=dev) * TILE_HW
-    last = torch.clamp(first + TILE_HW, max=hw) - 1
-    row_lo = first // dim
-    row_hi = last // dim
-    h_lo = lb + row_lo.to(torch.float32) * res
-    h_hi = h_lo + ((row_hi - row_lo).to(torch.float64) * res).to(torch.float32)
+    h_lo = lb + (torch.arange(nht, device=dev) * ht).to(torch.float32) * res
+    h_hi = h_lo + float((ht - 1) * res)
     x = coords_shifted[..., 0]
     y = coords_shifted[..., 1]
     z = coords_shifted[..., 2]
@@ -174,8 +235,8 @@ def plane_ranges(coords_shifted: torch.Tensor, r2: torch.Tensor, spec: GridSpec,
     lo = torch.where(empty, float(dl), lo).to(torch.int32)
     hi = torch.where(empty, 0.0, hi).to(torch.int32)
     nvc = vp // CHUNK
-    lo = lo.reshape(b, nhwt, nvc, CHUNK).amin(dim=3)
-    hi = hi.reshape(b, nhwt, nvc, CHUNK).amax(dim=3)
+    lo = lo.reshape(b, nht, nvc, CHUNK).amin(dim=3)
+    hi = hi.reshape(b, nht, nvc, CHUNK).amax(dim=3)
     hi = torch.maximum(hi, lo)  # all-empty chunks become d_hi == d_lo
     return torch.stack([lo, hi], dim=-1).contiguous()
 
@@ -184,9 +245,10 @@ def prepare_deposit(coords, weights, radii, mask, spec: GridSpec, gaussian: bool
                     d_offset=0, d_count: int | None = None, notrunc: bool = False):
     """Kernel inputs from padded (B, Vp, 3) / (B, Vp, C) / (B, Vp) arrays with
     Vp a multiple of CHUNK: atom rows (B, 8, Vp), weights (B, C, Vp),
-    ranges (B, nhwt, nvc, 2), and the local depth Dl.  Torch ops only, so
-    autograd carries gradients of the rows and weights back to the inputs;
-    masked atoms get zero weight here, hence zero gradients."""
+    ranges (B, nht, nvc, 2) at the bricks' ht rows, and the local depth Dl.
+    Torch ops only, so autograd carries gradients of the rows and weights
+    back to the inputs; masked atoms get zero weight here, hence zero
+    gradients."""
     dim = spec.dimension
     dl = dim if d_count is None else d_count
     res = float(spec.resolution)
@@ -200,7 +262,8 @@ def prepare_deposit(coords, weights, radii, mask, spec: GridSpec, gaussian: bool
     zero = torch.zeros_like(r2)
     coef = (-(0.5 / (sigma * sigma))) / r2 if gaussian else zero
     rows = torch.stack([xs, coords[..., 1], coords[..., 2], r2_th, coef, zero, zero, zero], dim=1).contiguous()
-    ranges = plane_ranges(rows[:, :3].detach().transpose(1, 2), r2_th.detach(), spec, dl)
+    ht = brick_rows(rows.shape[0], wt.shape[1], dl, dim)[1]
+    ranges = plane_ranges(rows[:, :3].detach().transpose(1, 2), r2_th.detach(), spec, dl, ht)
     return rows, wt.contiguous(), ranges, dl
 
 
@@ -211,9 +274,9 @@ def deposit_plain(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tenso
                   gaussian: bool, out_dtype=torch.float32) -> torch.Tensor:
     """The kernel's function in torch tensor ops -> (B, C, Dl, H*W).
 
-    Same inputs as the kernel; the plane ranges are applied (a voxel of tile
-    t gets chunk vc only on planes [d_lo, d_hi)), so a range that drops a
-    reachable plane shows up here too.  Accumulates in f32, casts once."""
+    Same inputs as the kernel; the plane ranges are applied (a voxel of row
+    tile t gets chunk vc only on planes [d_lo, d_hi)), so a range that drops
+    a reachable plane shows up here too.  Accumulates in f32, casts once."""
     b, _, vp = rows.shape
     c = weights.shape[1]
     dim = spec.dimension
@@ -221,13 +284,14 @@ def deposit_plain(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tenso
     dev = rows.device
     nvc = ranges.shape[2]
     chunk = vp // nvc
-    if ranges.shape[1] != -(-hw // TILE_HW):
-        raise ValueError(f"ranges must have one row per {TILE_HW}-voxel hw tile, got {tuple(ranges.shape)}")
+    ht = brick_rows(b, c, dl, dim)[1]
+    if ranges.shape[1] != -(-dim // ht):
+        raise ValueError(f"ranges must have one row per tile of {ht} h rows, got {tuple(ranges.shape)}")
     res = torch.tensor(spec.resolution, dtype=torch.float32, device=dev)
     half = torch.tensor(spec.width / 2.0, dtype=torch.float32, device=dev)
     pd = torch.arange(dl, device=dev).to(torch.float32) * res - half
     ph = torch.arange(dim, device=dev).to(torch.float32) * res - half
-    tile_of = torch.arange(hw, device=dev) // TILE_HW
+    tile_of = (torch.arange(hw, device=dev) // dim) // ht
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     out = torch.zeros((b, c, dl, hw), dtype=torch.float32, device=dev)
     bounds = torch.stack([ranges[..., 0].amin(dim=1), ranges[..., 1].amax(dim=1)], dim=-1).cpu()  # (B, nvc, 2)
@@ -361,13 +425,18 @@ def _kernel_lib(name: str):
     if not getattr(lib, "_molvoxel_typed", False):
         if name == "deposit_fwd":
             lib.deposit_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
-                [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                [ctypes.c_int] * 7 + [ctypes.c_void_p]
             lib.deposit_fwd.restype = ctypes.c_int
-            for fn in (lib.deposit_fwd_tile_hw, lib.deposit_fwd_chunk):
+            lib.deposit_fwd_blocks.argtypes = [ctypes.c_int] * 12 + [ctypes.POINTER(ctypes.c_longlong),
+                                                                      ctypes.POINTER(ctypes.c_int)]
+            lib.deposit_fwd_blocks.restype = ctypes.c_int
+            consts = (lib.deposit_fwd_chunk, lib.deposit_fwd_max_threads, lib.deposit_fwd_acc_max,
+                      lib.deposit_fwd_store_bytes)
+            for fn in consts:
                 fn.argtypes = []
                 fn.restype = ctypes.c_int
-            if (lib.deposit_fwd_tile_hw(), lib.deposit_fwd_chunk()) != (TILE_HW, CHUNK):
-                raise RuntimeError("deposit_fwd.cu tiles disagree with molvoxel_torch/ops/deposit.py")
+            if tuple(fn() for fn in consts) != (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES):
+                raise RuntimeError("deposit_fwd.cu bricks disagree with molvoxel_torch/ops/deposit.py")
         else:
             lib.deposit_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
                 [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -401,13 +470,14 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
         return deposit_plain(rows, weights, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_dtype)
     _check_kernel_inputs("deposit_fwd", rows, weights)
     b, _, vp = rows.shape
+    c = weights.shape[1]
     dim = spec.dimension
-    nhwt = -(-dim * dim // TILE_HW)
-    if tuple(ranges.shape) != (b, nhwt, vp // CHUNK, 2):
-        raise ValueError(f"ranges must be {(b, nhwt, vp // CHUNK, 2)}, got {tuple(ranges.shape)}")
+    plan = brick(b, c, dl, dim, out_dtype)
+    nht = -(-dim // plan.ht)
+    if tuple(ranges.shape) != (b, nht, vp // CHUNK, 2):
+        raise ValueError(f"ranges must be {(b, nht, vp // CHUNK, 2)}, got {tuple(ranges.shape)}")
     if ranges.dtype != torch.int32 or not ranges.is_contiguous() or ranges.device != rows.device:
         raise ValueError(f"ranges must be a contiguous torch.int32 tensor on {rows.device}")
-    c = weights.shape[1]
     out = torch.empty((b, c, dl, dim * dim), dtype=out_dtype, device=rows.device)
     lib = _kernel_lib("deposit_fwd")
     stream = torch.cuda.current_stream(rows.device).cuda_stream
@@ -415,12 +485,29 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
         rc = lib.deposit_fwd(
             rows.data_ptr(), weights.data_ptr(), ranges.data_ptr(), out.data_ptr(),
             b, vp, c, dl, dim, float(spec.resolution), float(spec.width / 2.0),
-            int(gaussian), _OUT_KINDS[out_dtype], stream,
+            int(gaussian), _OUT_KINDS[out_dtype], plan.kct, plan.threads, plan.dt, plan.ht, plan.passes, stream,
         )
     if rc != 0:
         raise RuntimeError(f"deposit_fwd kernel launch failed with cudaError {rc}")
     launches["deposit_fwd"] += 1
     return out
+
+
+def fwd_launch_info(b: int, c: int, vp: int, dl: int, dim: int, gaussian: bool, out_dtype=torch.float32) -> dict:
+    """The forward launch for these shapes: its brick, its block count and
+    how many blocks one SM of the current card holds at once (so blocks /
+    (resident per SM x SMs) is the launch's waves).  Needs the card."""
+    out_dtype = out_torch_dtype(out_dtype)
+    plan = brick(b, c, dl, dim, out_dtype)
+    blocks, resident = ctypes.c_longlong(0), ctypes.c_int(0)
+    rc = _kernel_lib("deposit_fwd").deposit_fwd_blocks(
+        b, vp, c, dl, dim, int(gaussian), _OUT_KINDS[out_dtype], plan.kct, plan.threads, plan.dt, plan.ht,
+        plan.passes, ctypes.byref(blocks), ctypes.byref(resident))
+    if rc != 0:
+        raise RuntimeError(f"deposit_fwd occupancy query failed with cudaError {rc}")
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return dict(plan._asdict(), blocks=blocks.value, resident_per_sm=resident.value,
+                waves=blocks.value / max(resident.value * sms, 1))
 
 
 def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, spec: GridSpec, dl: int,

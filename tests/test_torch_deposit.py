@@ -52,28 +52,45 @@ def _shifted_rows(rng, dim, d_offset, res=0.5):
     return shifted, r2
 
 
-@pytest.mark.parametrize("dim,d_offset,d_count", [(16, 0, None), (32, 0, None), (32, 8, 12), (64, 20, 24)])
-def test_plane_ranges_equal_closed_form_on_whole_rows(rng, dim, d_offset, d_count):
-    # the port's 128-voxel tiles are whole h rows here: 128 // dim rows each
+@pytest.mark.parametrize("dim,d_offset,d_count,ht", [(16, 0, None, 8), (32, 0, None, 4), (32, 8, 12, 4),
+                                                     (64, 20, 24, 2), (20, 0, None, 3), (20, 3, 11, 1),
+                                                     (33, 0, None, 4), (33, 5, 27, 7)])
+def test_plane_ranges_equal_closed_form_on_whole_rows(rng, dim, d_offset, d_count, ht):
+    # the port's bricks are whole h rows, ragged dims (20, 33) too
     shifted, r2 = _shifted_rows(rng, dim, d_offset)
     dl = dim if d_count is None else d_count
-    got = deposit.plane_ranges(torch.as_tensor(shifted), torch.as_tensor(r2), TSpec(0.5, dim), dl)
-    nhwt = dim * dim // deposit.TILE_HW
-    want = np.asarray(_plane_ranges_closed(jnp.asarray(shifted), jnp.asarray(r2), JSpec(0.5, dim), dl, nhwt,
-                                           deposit.TILE_HW // dim, deposit.CHUNK))
-    assert got.shape == (2, nhwt, 256 // deposit.CHUNK, 2)
+    got = deposit.plane_ranges(torch.as_tensor(shifted), torch.as_tensor(r2), TSpec(0.5, dim), dl, ht)
+    nht = -(-dim // ht)
+    want = np.asarray(_plane_ranges_closed(jnp.asarray(shifted), jnp.asarray(r2), JSpec(0.5, dim), dl, nht, ht,
+                                           deposit.CHUNK))
+    assert got.shape == (2, nht, 256 // deposit.CHUNK, 2)
     np.testing.assert_array_equal(got.numpy().reshape(-1, 1, 2), want)
 
 
-@pytest.mark.parametrize("dim,res,d_offset,d_count", [(12, 0.5, 0, None), (20, 0.5, 3, 11), (40, 0.375, 0, None),
-                                                      (16, 0.25, 4, 8)])
-def test_plane_ranges_never_drop_a_reached_plane(rng, dim, res, d_offset, d_count):
+@pytest.mark.parametrize("dim,d_offset,d_count", [(20, 0, None), (33, 5, 27)])
+def test_plane_ranges_at_the_wrappers_bricks_equal_closed_form(rng, dim, d_offset, d_count):
+    """prepare_batch's ranges are _plane_ranges_closed at the wrapper's own ht."""
+    coords, weights, radii, mask = _cloud(rng, v=256, box=dim * 0.5 * 0.45, n_pad=40)
+    spec = TSpec(0.5, dim)
+    c_t, w_t, r_t, m_t = _t(coords, weights, radii, mask)
+    rows, wt, ranges, dl, _ = deposit.prepare_batch(c_t, w_t, r_t, spec=spec, mask=m_t, d_offset=d_offset,
+                                                    d_count=d_count, presorted=True)
+    ht = deposit.brick_rows(2, 3, dl, dim)[1]
+    shifted = rows[:, :3].transpose(1, 2).numpy()
+    want = np.asarray(_plane_ranges_closed(jnp.asarray(shifted), jnp.asarray(rows[:, 3].numpy()), JSpec(0.5, dim),
+                                           dl, -(-dim // ht), ht, deposit.CHUNK))
+    np.testing.assert_array_equal(ranges.numpy().reshape(-1, 1, 2), want)
+
+
+@pytest.mark.parametrize("dim,res,d_offset,d_count,ht", [(12, 0.5, 0, None, 5), (20, 0.5, 3, 11, 3),
+                                                         (40, 0.375, 0, None, 7), (16, 0.25, 4, 8, 16)])
+def test_plane_ranges_never_drop_a_reached_plane(rng, dim, res, d_offset, d_count, ht):
     """Whatever the tiling (ragged tiles too): every (atom, plane, voxel) the
-    exact cutoff reaches lies inside its (tile, chunk) range."""
+    exact cutoff reaches lies inside its (row tile, chunk) range."""
     spec = TSpec(res, dim)
     shifted, r2 = _shifted_rows(rng, dim, d_offset, res)
     dl = dim if d_count is None else d_count
-    ranges = deposit.plane_ranges(torch.as_tensor(shifted), torch.as_tensor(r2), spec, dl)
+    ranges = deposit.plane_ranges(torch.as_tensor(shifted), torch.as_tensor(r2), spec, dl, ht)
     half = np.float32(spec.width / 2.0)
     pos = np.arange(dim, dtype=np.float32) * np.float32(res) - half
     pd = np.arange(dl, dtype=np.float32) * np.float32(res) - half
@@ -86,8 +103,52 @@ def test_plane_ranges_never_drop_a_reached_plane(rng, dim, res, d_offset, d_coun
     reach = dyz2[:, :, None, :] <= th[..., None]  # (B, V, Dl, HW)
     b_i, v_i, d_i, hw_i = np.nonzero(reach)
     assert b_i.size > 100
-    rg = ranges.numpy()[b_i, hw_i // deposit.TILE_HW, v_i // deposit.CHUNK]
+    rg = ranges.numpy()[b_i, hw_i // dim // ht, v_i // deposit.CHUNK]
     assert ((rg[:, 0] <= d_i) & (d_i < rg[:, 1])).all()
+
+
+BRICK_GRIDS = [(12, None), (20, (3, 11)), (33, (5, 27)), (64, None), (64, (20, 24)), (256, (100, 40))]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("dim,slab", BRICK_GRIDS)
+def test_bricks_cover_every_voxel_once(dim, slab, out_dtype):
+    """The wrapper's launch, walked with the kernel's index arithmetic
+    (work item -> brick, thread and pass -> run of w), writes every
+    (channel, plane, row, column) of the grid exactly once."""
+    for b, c in ((1, 1), (2, 4), (3, 6), (2, 12)):
+        dl = dim if slab is None else slab[1]
+        p = deposit.brick(b, c, dl, dim, out_dtype)
+        assert p.passes * p.run * p.kct <= deposit.ACC_MAX and p.threads <= deposit.BRICK_THREADS
+        assert p.threads % 32 == 0 and 1 <= p.dt <= dl and 1 <= p.ht <= dim
+        nct, ndt, nht, nrun = -(-c // p.kct), -(-dl // p.dt), -(-dim // p.ht), -(-dim // p.run)
+        groups = [cg * p.kct + k for cg in range(nct) for k in range(p.kct) if cg * p.kct + k < c]
+        assert sorted(groups) == list(range(c))
+        item = np.arange(ndt * nht)  # one molecule and channel group; the others are disjoint copies
+        ti, di = item % nht, item // nht
+        u = (np.arange(p.threads)[:, None] + np.arange(p.passes)[None, :] * p.threads).reshape(-1)
+        u = u[u < p.dt * p.ht * nrun]
+        row, run = u // nrun, u % nrun
+        d = (di * p.dt)[:, None] + (row // p.ht)[None, :]
+        h = (ti * p.ht)[:, None] + (row % p.ht)[None, :]
+        w = (run * p.run)[None, :, None] + np.arange(p.run)[None, None, :]
+        live = ((d < dl) & (h < dim))[..., None] & (w < dim)
+        flat = ((d[..., None] * dim + h[..., None]) * dim + w)[live]
+        np.testing.assert_array_equal(np.bincount(flat, minlength=dl * dim * dim), 1)
+
+
+def test_ranges_must_be_at_the_bricks_rows(rng):
+    """deposit_plain takes ranges only at the wrapper's own ht, and a grid
+    row wider than the kernel's accumulators is refused when planned."""
+    coords, weights, radii, mask = _t(*_cloud(rng))
+    spec = TSpec(0.5, 12)
+    rows, wt, ranges, dl, gaussian = deposit.prepare_batch(coords, weights, radii, spec=spec, mask=mask)
+    ht = deposit.brick_rows(2, 3, dl, 12)[1]
+    other = deposit.plane_ranges(rows[:, :3].transpose(1, 2), rows[:, 3], spec, dl, 12 if ht < 12 else 5)
+    with pytest.raises(ValueError, match="one row per tile"):
+        deposit.deposit_plain(rows, wt, other, spec=spec, dl=dl, gaussian=gaussian)
+    with pytest.raises(ValueError, match="accumulators"):
+        deposit.brick(1, 8, 1, 8192, torch.float32)
 
 
 CASES = [(dim, dens, var) for dim in (16, 12) for dens in ("gaussian", "binary")
@@ -190,3 +251,4 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         _build.load("deposit_bwd")
     assert _build.library_path("deposit_fwd").name.startswith("libdeposit_fwd-")
     assert _build.SOURCES == ("deposit_fwd", "deposit_bwd")
+

@@ -21,12 +21,16 @@ exit code:
    exact zero grid; it is timed as it is and with its atoms parked off the
    grid (the kernel's store floor).  Then bwd_vs_plain: the backward kernel against
    ``deposit_bwd_plain`` on the same inputs and cotangent: the headline
-   batch (f32 and bf16 cotangent), the protein at 48^3 and 128^3, dims 20
-   and 40, the ligand at 256^3, a depth slab, channel-wise radii (9
-   channels), binary density and the notrunc threshold row.  Bars: f32
-   1e-4 x max(1, gradient scale), since the kernel sums in another order;
-   a bf16 cotangent is held at that bar against the plain version on the
-   same bf16 values, and at 3e-2 x scale against the f32 cotangent.
+   batch (f32 and bf16 cotangent, and C = 16), the protein at 48^3 and
+   128^3, dims 20 and 40, the ligand at 256^3, a depth slab, channel-wise
+   radii (9 channels), binary density and the notrunc threshold row.  Bars:
+   f32 1e-4 x max(1, gradient scale), since the kernel sums in another
+   order; a bf16 cotangent is held at that bar against the plain version on
+   the same bf16 values, and at 3e-2 x scale against the f32 cotangent.
+   Every case is launched twice, and the two launches' gradients must be
+   bitwise equal.  A batch of 70,000 one-chunk molecules at 8^3 (more than
+   a grid axis holds) must equal, bit for bit, the same kernel run on its
+   two halves.
 4. goldens: all 22 goldens through ``create_voxelizer`` on CUDA, at their
    own bars (1e-5; 5e-5 for the two *_torchref goldens, gaussian_notrunc).
 5. main_path: the entry points at full width, with the launch counts set
@@ -45,7 +49,9 @@ exit code:
      and one backward launch each.
    Each path's output is checked against the plain path, and each kernel
    is timed (CUDA-graph replay of 10 launches, median of 7; and back to
-   back) beside its plain version at that path's shapes.  Forward lines
+   back) beside its plain version at that path's shapes; the backward's
+   line adds its warps per atom, blocks and waves, and the launch floor
+   (an ``add_(1)`` on one element, timed the same way).  Forward lines
    carry the launch's brick, blocks, waves (blocks / (resident blocks per
    SM x SMs)) and write rate (grid bytes / kernel time).  The headline
    ``forward_batch`` call and the training step are also timed on the host
@@ -157,6 +163,15 @@ def time_graph_ms(fn, reps=7, inner=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def launch_floor_ms():
+    """Device milliseconds of the smallest launch: ``add_(1)`` on a
+    one-element tensor, timed as ``time_graph_ms`` times a kernel."""
+    import torch
+
+    one = torch.zeros(1, device=DEVICE)
+    return time_graph_ms(lambda: one.add_(1))
 
 
 def cutoff_pairs(rows, live, spec, dl):
@@ -441,6 +456,7 @@ def main() -> int:
         ("lig_dim256_f32", lig_xyz, 4, 1, 256, 0.25, "gaussian", torch.float32, None, False),
         ("lig_dim64_slab16_32", lig_xyz, 4, 2, 64, 0.5, "gaussian", torch.float32, (16, 32), False),
         ("lig_dim48_channelwise9", lig_xyz, 9, 2, 48, 0.5, "gaussian", torch.float32, None, True),
+        ("headline_64lig_dim64_c16_f32", lig_xyz, 16, 64, 64, 0.5, "gaussian", torch.float32, None, False),
         ("lig_dim48_binary_f32", lig_xyz, 4, 2, 48, 0.5, "binary", torch.float32, None, False),
         ("lig_dim40_binary_bf16", lig_xyz, 4, 2, 40, 0.5, "binary", torch.bfloat16, None, False),
         ("lig_dim48_notrunc_f32", lig_xyz, 4, 2, 48, 0.5, "gaussian_notrunc", torch.float32, None, False),
@@ -453,12 +469,15 @@ def main() -> int:
         ct32 = torch.randn((b, wt.shape[1], dl, dim * dim), generator=ct_gen, device=dev)
         ct = ct32.to(ct_dt)
         got = deposit.deposit_bwd(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian)
+        again = deposit.deposit_bwd(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian)
         torch.cuda.synchronize()
         err, scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian))
         tol = 1e-4 * scale
+        bitwise = all(same_bits(g, a) for g, a in zip(got, again))
         line = {"phase": "bwd_vs_plain", "case": name, "ct_dtype": str(ct_dt), "grad_scale": scale,
-                "max_abs_err": err, "tol": tol}
-        ok = err <= tol
+                "max_abs_err": err, "tol": tol, "two_launches_bitwise_equal": bitwise,
+                "warps_per_atom": deposit.bwd_warps_per_atom(b, wt.shape[2])}
+        ok = err <= tol and bitwise
         if ct_dt != torch.float32:  # the low-precision lane against the f32 cotangent
             lane_err, lane_scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct32, spec=spec, dl=dl,
                                                                            gaussian=gaussian))
@@ -469,6 +488,30 @@ def main() -> int:
         bwd_errs.append(err)
         if not line["ok"]:
             failed.append(name)
+    # 70,000 one-chunk molecules at 8^3: more than a grid axis holds (65,535).
+    # Held bitwise against the same kernel on the two halves of the batch, and
+    # its first molecules against the plain version
+    big, half = 70_000, 35_000
+    spec8 = GridSpec(0.5, 8)
+    big_gen = torch.Generator(device=dev).manual_seed(1)
+    big_xyz = (torch.rand((big, 64, 3), generator=big_gen, device=dev) - 0.5) * spec8.width
+    big_w = torch.rand((big, 64, 1), generator=big_gen, device=dev)
+    rows, wt, _, dl, gaussian = deposit.prepare_batch(big_xyz, big_w, torch.ones(64, device=dev), spec=spec8)
+    ct = torch.randn((big, 1, dl, 64), generator=big_gen, device=dev)
+    got = deposit.deposit_bwd(rows, wt, ct, spec=spec8, dl=dl, gaussian=gaussian)
+    halves = [deposit.deposit_bwd(rows[s], wt[s], ct[s], spec=spec8, dl=dl, gaussian=gaussian)
+              for s in (slice(0, half), slice(half, big))]
+    torch.cuda.synchronize()
+    bitwise = all(same_bits(g, torch.cat([h[k] for h in halves])) for k, g in enumerate(got))
+    err, scale = grad_err([g[:4] for g in got], deposit.deposit_bwd_plain(rows[:4], wt[:4], ct[:4], spec=spec8, dl=dl,
+                                                                          gaussian=gaussian))
+    ok = bitwise and err <= 1e-4 * scale and all(torch.isfinite(g).all() for g in got)
+    emit({"phase": "bwd_vs_plain", "case": "batch70000_dim8_c1_f32", "batch": big, "halves_bitwise_equal": bitwise,
+          "max_abs_err_first4": err, "tol": 1e-4 * scale, "warps_per_atom": deposit.bwd_warps_per_atom(big, 64),
+          "ok": bool(ok)})
+    if not ok:
+        failed.append("batch70000_dim8_c1_f32")
+    del big_xyz, big_w, rows, wt, ct, got, halves
     if failed:
         raise SystemExit(f"bwd_vs_plain failed: {failed}")
 
@@ -711,12 +754,14 @@ def main() -> int:
     kerr, scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct, **bkw))
     # the layer's 64-atom molecules fill one chunk each and are not sorted, so the mask keeps its order
     b_ms, b_by = bound_bwd(rows, wt, ct, b_mask, bkw["spec"], bkw["dl"], bkw["gaussian"])
+    info = deposit.bwd_launch_info(*wt.shape, bkw["gaussian"], ct.dtype)
     line = {"phase": "main_path", "row": 4, "case": "train_step_64lig_dim64_c4_f32 (deposit_bwd)",
             "launches": train_launches["deposit_bwd"], "grad_scale": scale, "kernel_vs_plain_err": kerr,
             "tol": 1e-4 * scale, "kernel_ms": time_graph_ms(lambda: deposit.deposit_bwd(rows, wt, ct, **bkw)),
             "kernel_ms_back_to_back": time_ms(lambda: deposit.deposit_bwd(rows, wt, ct, **bkw)),
+            "launch_floor_ms": launch_floor_ms(),
             "plain_ms": time_ms(lambda: deposit.deposit_bwd_plain(rows, wt, ct, **bkw), reps=5, inner=1),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, **info}
     emit(line)
     if kerr > 1e-4 * scale:
         raise SystemExit("main path training step: backward kernel disagrees with its plain version")

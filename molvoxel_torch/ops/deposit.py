@@ -12,7 +12,8 @@ bookkeeping:
   the density is negligible (``notrunc_r2_thresh``), and coef comes from the
   true r^2;
 - plan the kernel's bricks (``brick``): dt depth planes x ht whole h rows
-  a block, chosen per grid;
+  a block, chosen per grid; and the backward's warps per atom
+  (``bwd_warps_per_atom``);
 - compute, in closed form, the depth planes [d_lo, d_hi) that each
   (tile of ht rows, atom chunk) pair can reach (``plane_ranges``);
 - expand channel-wise radii into virtual atoms (same position, radius r_c,
@@ -44,6 +45,8 @@ ACC_MAX = 32  # f32 accumulators a forward thread holds (kAccMax)
 STORE_BYTES = 16  # bytes of output a forward thread stores at once (kStoreBytes)
 TARGET_BLOCKS = 16 * 132  # bricks shrink until a launch has this many blocks: 16 per SM of an H100 SXM
 MIN_LANES = 24  # ... or until a smaller brick would leave most of a warp idle (f32 runs)
+BWD_THREADS = 256  # threads of a backward block (kThreads in deposit_bwd.cu): 8 warps
+BWD_TARGET_WARPS = 16 * 132  # a backward launch spreads atoms over warps until it has this many: 16 per SM
 FAR = 1e3  # coordinate of padding atoms: far outside any grid
 _PLAIN_BUDGET = 1 << 26  # elements of deposit_plain's (planes, H*W, chunk) temporary
 
@@ -439,8 +442,15 @@ def _kernel_lib(name: str):
                 raise RuntimeError("deposit_fwd.cu bricks disagree with molvoxel_torch/ops/deposit.py")
         else:
             lib.deposit_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
-                [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                [ctypes.c_int] * 3 + [ctypes.c_void_p]
             lib.deposit_bwd.restype = ctypes.c_int
+            lib.deposit_bwd_blocks.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                                                     ctypes.POINTER(ctypes.c_int)]
+            lib.deposit_bwd_blocks.restype = ctypes.c_int
+            lib.deposit_bwd_threads.argtypes = []
+            lib.deposit_bwd_threads.restype = ctypes.c_int
+            if lib.deposit_bwd_threads() != BWD_THREADS:
+                raise RuntimeError("deposit_bwd.cu blocks disagree with molvoxel_torch/ops/deposit.py")
         lib._molvoxel_typed = True
     return lib
 
@@ -510,14 +520,43 @@ def fwd_launch_info(b: int, c: int, vp: int, dl: int, dim: int, gaussian: bool, 
                 waves=blocks.value / max(resident.value * sms, 1))
 
 
+def bwd_warps_per_atom(b: int, vp: int) -> int:
+    """Warps the backward kernel gives each atom: 1, 2, 4 or 8 (a whole
+    block), the fewest that give the launch ``BWD_TARGET_WARPS`` warps.  The
+    warps of an atom split its rows.  A batch of thousands of atoms (the
+    training batch, a protein) gets one warp an atom; a lone ligand, 8.
+    Depends on the shapes only: the atoms' reach lives on the card, and
+    reading it would stall the launch."""
+    wpa = 1
+    while wpa < BWD_THREADS // 32 and b * vp * wpa < BWD_TARGET_WARPS:
+        wpa *= 2
+    return wpa
+
+
+def bwd_launch_info(b: int, c: int, vp: int, gaussian: bool, ct_dtype=torch.float32) -> dict:
+    """The backward launch for these shapes: warps per atom, atoms per
+    block, blocks, how many blocks one SM of the current card holds at once,
+    and waves (blocks / (resident per SM x SMs)).  Needs the card."""
+    wpa = bwd_warps_per_atom(b, vp)
+    blocks, resident = ctypes.c_longlong(0), ctypes.c_int(0)
+    rc = _kernel_lib("deposit_bwd").deposit_bwd_blocks(b, vp, c, int(gaussian), _CT_KINDS[ct_dtype], wpa,
+                                                       ctypes.byref(blocks), ctypes.byref(resident))
+    if rc != 0:
+        raise RuntimeError(f"deposit_bwd occupancy query failed with cudaError {rc}")
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return dict(warps_per_atom=wpa, atoms_per_block=BWD_THREADS // 32 // wpa, blocks=blocks.value,
+                resident_per_sm=resident.value, waves=blocks.value / max(resident.value * sms, 1))
+
+
 def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, spec: GridSpec, dl: int,
                 gaussian: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Gradients of a deposit at cotangent ``ct`` (B, C, Dl, H*W) ->
     (grad_rows (B, 8, Vp), grad_weights (B, C, Vp)), f32; see
     ``deposit_bwd_plain`` for the function.
 
-    CUDA tensors launch ``csrc/deposit_bwd.cu``, which reads a float32 or a
-    bfloat16 cotangent (an fp8 one is widened to bf16 first, exactly);
+    CUDA tensors launch ``csrc/deposit_bwd.cu`` with
+    ``bwd_warps_per_atom(B, Vp)`` warps an atom; it reads a float32 or a
+    bfloat16 cotangent (an fp8 one is widened to bf16 first, exactly).
     CPU tensors run ``deposit_bwd_plain``.  Raises on anything the kernel
     does not take."""
     if rows.device.type == "cpu":
@@ -540,7 +579,7 @@ def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, 
         rc = lib.deposit_bwd(
             rows.data_ptr(), weights.data_ptr(), ct.data_ptr(), grad_rows.data_ptr(), grad_w.data_ptr(),
             b, vp, c, dl, dim, float(spec.resolution), float(spec.width / 2.0),
-            int(gaussian), _CT_KINDS[ct.dtype], stream,
+            int(gaussian), _CT_KINDS[ct.dtype], bwd_warps_per_atom(b, vp), stream,
         )
     if rc != 0:
         raise RuntimeError(f"deposit_bwd kernel launch failed with cudaError {rc}")

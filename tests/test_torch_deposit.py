@@ -252,3 +252,244 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     assert _build.library_path("deposit_fwd").name.startswith("libdeposit_fwd-")
     assert _build.SOURCES == ("deposit_fwd", "deposit_bwd")
 
+
+
+# ----------------------------------------------- the backward kernel's walk
+
+F32 = np.float32
+
+
+def _axis_pos(idx, res, hw):
+    return F32(F32(F32(idx) * res) - hw)
+
+
+def _slack_reach(r2):
+    """slack_reach of deposit_bwd.cu, rounded step by step in float32."""
+    return F32(F32(np.sqrt(max(F32(r2), F32(0.0))) * F32(1.0001)) + F32(1e-4))
+
+
+def _span(p, reach, res, hw, n):
+    """span of deposit_bwd.cu: the indices in [0, n) within reach of p,
+    widened by one voxel each side; empty when hi < lo."""
+    inv_res = F32(1.0) / F32(res)
+    flo = F32(np.ceil(F32(F32(F32(p - reach) + hw) * inv_res))) - F32(1.0)
+    fhi = F32(np.floor(F32(F32(F32(p + reach) + hw) * inv_res))) + F32(1.0)
+    return int(min(max(flo, F32(0.0)), F32(n))), int(max(min(fhi, F32(n - 1)), F32(-1.0)))
+
+
+def _accepted(x, y, z, th, res, hw, dl, dim):
+    """(Dl, H, W) bool: the voxels the forward's exact predicate accepts."""
+    pd = np.arange(dl, dtype=F32) * F32(res) - F32(hw)
+    ph = np.arange(dim, dtype=F32) * F32(res) - F32(hw)
+    dx, dy, dz = pd - F32(x), ph - F32(y), ph - F32(z)
+    t_th = F32(th) - dx * dx
+    dyz2 = (dy * dy)[:, None] + (dz * dz)[None, :]
+    return dyz2[None] <= t_th[:, None, None]
+
+
+def _plane_span(x, y, th, i, res, hw, hlo, hhi, dim):
+    """A plane's terms and its h-span in closed form, widened by one voxel
+    and clipped to the box; empty where th - dx^2 < 0."""
+    dx = F32(_axis_pos(i, res, hw) - x)
+    t_th = F32(th - F32(dx * dx))
+    if not t_th >= 0:
+        return t_th, 0, -1
+    lo, hi = _span(y, _slack_reach(t_th), res, hw, dim)
+    return t_th, max(lo, hlo), min(hi, hhi)
+
+
+def _row_span(z, t_th, dy2, res, hw, wlo, whi, dim):
+    """A row's w-span, widened by one voxel and clipped to the box; empty
+    where dy^2 > th - dx^2."""
+    if not dy2 <= t_th:
+        return 0, -1
+    lo, hi = _span(z, _slack_reach(F32(t_th - dy2)), res, hw, dim)
+    return max(lo, wlo), min(hi, whi)
+
+
+def _owner_rank(counts, base, lane):
+    """The kernel's owner_rank: among the lanes with items (counts > 0,
+    numbered by prefix sums), the rank of the one holding item base + lane,
+    as the count of those whose last item lies below it."""
+    ends = [int(e) - 1 for e, n in zip(np.cumsum(counts), counts) if n > 0]
+    mask = sum(1 << (e - base) for e in ends if 0 <= e - base < 32)
+    return min(sum(e < base for e in ends) + bin(mask & ((1 << lane) - 1)).count("1"), 31)
+
+
+def _kernel_walk(x, y, z, th, res, hw, dl, dim, wpa):
+    """The (i, h, w) pairs the kernel's lanes evaluate, with its own index
+    arithmetic: the box; planes 32 at a time, each with its h-span; rows
+    numbered by prefix sums, a contiguous share a warp, 32 at a time, each
+    finding its plane by owner_rank, each with its w-span; pairs numbered
+    the same way, 32 a batch, each finding its row by owner_rank.  Also how
+    often a warp had more than 32 rows in a batch of planes."""
+    reach = _slack_reach(th)
+    dlo, dhi = _span(x, reach, res, hw, dl)
+    hlo, hhi = _span(y, reach, res, hw, dim)
+    wlo, whi = _span(z, reach, res, hw, dim)
+    nd = dhi - dlo + 1 if (dhi >= dlo and hhi >= hlo and whi >= wlo) else 0
+    visits, refills = [], 0
+    for part in range(wpa):
+        for pc in range(0, nd, 32):
+            planes = [_plane_span(x, y, th, dlo + pc + lane, res, hw, hlo, hhi, dim) if pc + lane < nd
+                      else (F32(0.0), 0, -1) for lane in range(32)]
+            hn = [max(hi - lo + 1, 0) for _, lo, hi in planes]
+            pincl = np.cumsum(hn)
+            with_rows = [(pc + lane, planes[lane][0], planes[lane][1] - int(pincl[lane] - hn[lane]))
+                         for lane in range(32) if hn[lane] > 0]
+            share = (int(pincl[31]) + wpa - 1) // wpa
+            rend = min(int(pincl[31]), (part + 1) * share)
+            for q0 in range(part * share, rend, 32):
+                rows, lens = [], []
+                for lane in range(32):
+                    rank = _owner_rank(hn, q0, lane)  # past the last row: a stale entry, unused
+                    pl, t_th, hofs = with_rows[rank] if rank < len(with_rows) else (0, F32(-1.0), 0)
+                    h = q0 + lane + hofs
+                    dy = F32(_axis_pos(h, res, hw) - y)
+                    lo, hi = _row_span(z, t_th, F32(dy * dy), res, hw, wlo, whi, dim) if q0 + lane < rend else (0, -1)
+                    rows.append((dlo + pl, h, lo))
+                    lens.append(max(hi - lo + 1, 0))
+                incl = np.cumsum(lens)
+                recs = [(*rows[r], int(incl[r] - lens[r])) for r in range(32) if lens[r] > 0]
+                for base in range(0, int(incl[31]), 32):  # batches of 32 pairs, lane by lane
+                    for lane in range(min(32, int(incl[31]) - base)):
+                        i, h, lo, excl = recs[_owner_rank(lens, base, lane)]
+                        visits.append((i, h, lo + base + lane - excl))
+                refills += q0 > part * share
+    return visits, refills
+
+
+def _adversarial_atoms(res, dim, dl, d_offset):
+    """(x', y, z, r2_thresh) rows: centres on voxel centres and half-voxels,
+    radii of exactly k voxels, the notrunc threshold row, atoms at and past
+    the grid's edges, far-off padding atoms; x' shifted by the slab."""
+    hw = F32(res * dim / 2)
+    on = [_axis_pos(k, F32(res), hw) for k in (0, 3, dim // 2, dim - 1)]
+    half = [F32(p + F32(res / 2)) for p in on]
+    edge = [F32(-hw - F32(res)), F32(hw + F32(0.3 * res)), F32(hw - F32(1e-3))]
+    r2s = [F32(F32(k * res) ** 2) for k in (1, 2, 3)] + [F32(1.0), F32(2.56)]
+    r2s += [F32(deposit.notrunc_r2_thresh(torch.tensor(F32(r2)), 0.5)) for r2 in (1.0, 2.56)]
+    atoms = []
+    rng = np.random.default_rng(7)
+    for r2 in r2s:
+        for px in on + half + edge:
+            py, pz = rng.choice(on + half + edge, size=2)
+            atoms.append((F32(px - F32(F32(d_offset) * F32(res))), F32(py), F32(pz), r2))
+    atoms += [(F32(deposit.FAR), F32(deposit.FAR), F32(deposit.FAR), F32(1.0)),
+              (F32(-deposit.FAR), F32(0.0), F32(0.0), F32(1.0))]
+    return atoms
+
+
+BWD_GRIDS = [(0.5, 16, 0, None), (0.5, 20, 3, 11), (0.25, 24, 0, None), (0.375, 12, 2, 7)]
+
+
+@pytest.mark.parametrize("res,dim,d_offset,d_count", BWD_GRIDS)
+def test_bwd_row_spans_hold_every_accepted_voxel(res, dim, d_offset, d_count):
+    """The kernel's box, h-span and w-span formulas (a float32 copy): on
+    adversarial atoms, every voxel the exact predicate accepts lies in the
+    box, inside its plane's h-span and its row's w-span; and a w-span is at
+    most its row's accepted run plus three voxels."""
+    dl = dim if d_count is None else d_count
+    hw = F32(res * dim / 2)
+    res = F32(res)
+    hits = 0
+    for x, y, z, th in _adversarial_atoms(res, dim, dl, d_offset):
+        acc = _accepted(x, y, z, th, res, hw, dl, dim)
+        hits += int(acc.sum())
+        reach = _slack_reach(th)
+        (dlo, dhi), (hlo, hhi), (wlo, whi) = (_span(p, reach, res, hw, n) for p, n in ((x, dl), (y, dim), (z, dim)))
+        for i, h in zip(*np.nonzero(acc.any(axis=2))):
+            assert dlo <= i <= dhi and hlo <= h <= hhi
+            t_th, hl, hr = _plane_span(x, y, th, i, res, hw, hlo, hhi, dim)
+            assert hl <= h <= hr
+            dy = F32(_axis_pos(h, res, hw) - y)
+            wl, wr = _row_span(z, t_th, F32(dy * dy), res, hw, wlo, whi, dim)
+            w = np.nonzero(acc[i, h])[0]
+            assert wl <= w.min() and w.max() <= wr
+            assert wr - wl + 1 <= w.size + 3
+    assert hits > 1000
+
+
+@pytest.mark.parametrize("wpa", [1, 2, 8])
+@pytest.mark.parametrize("res,dim,d_offset,d_count", BWD_GRIDS[:2])
+def test_bwd_kernel_walk_visits_each_accepted_voxel_once(res, dim, d_offset, d_count, wpa):
+    """The kernel's enumeration, lane by lane: every accepted voxel of an
+    atom is a pair of exactly one lane of one of its warps, and no pair
+    lies outside the grid or slab."""
+    dl = dim if d_count is None else d_count
+    hw = F32(res * dim / 2)
+    res = F32(res)
+    refills = 0
+    for x, y, z, th in _adversarial_atoms(res, dim, dl, d_offset):
+        visits, n = _kernel_walk(x, y, z, th, res, hw, dl, dim, wpa)
+        refills += n
+        assert len(visits) == len(set(visits))
+        if visits:
+            v = np.asarray(visits)
+            assert v.min() >= 0 and (v[:, 0] < dl).all() and (v[:, 1:] < dim).all()
+        acc = _accepted(x, y, z, th, res, hw, dl, dim)
+        want = {tuple(int(k) for k in ijk) for ijk in zip(*np.nonzero(acc))}
+        assert want <= set(visits)
+    assert refills > 0 or wpa == 8  # with fewer warps an atom, some warp had more than 32 rows of a plane batch
+
+
+def test_bwd_warps_per_atom_is_what_the_wrapper_passes(rng, monkeypatch):
+    """bwd_warps_per_atom: one warp an atom on the training batch (64 x 64
+    atoms) and the protein bucket, a whole block for a lone ligand; the
+    wrapper hands the kernel that plan and any batch (70,000 molecules: no
+    grid-axis cap)."""
+    assert deposit.bwd_warps_per_atom(64, 64) == 1
+    assert deposit.bwd_warps_per_atom(1, 4096) == 1
+    assert deposit.bwd_warps_per_atom(70_000, 64) == 1
+    assert deposit.bwd_warps_per_atom(1, 64) == 8
+    assert deposit.bwd_warps_per_atom(2, 64) == 8
+    assert deposit.bwd_warps_per_atom(9, 128) == 2
+    for b, vp in ((1, 64), (9, 128), (64, 64), (70_000, 64)):
+        wpa = deposit.bwd_warps_per_atom(b, vp)
+        assert wpa in (1, 2, 4, 8) and (b * vp * wpa >= deposit.BWD_TARGET_WARPS or wpa == 8)
+        assert wpa == 1 or b * vp * wpa // 2 < deposit.BWD_TARGET_WARPS
+
+    calls = []
+
+    class FakeLib:
+        def deposit_bwd(self, *args):
+            calls.append(args)
+            return 0
+
+    import contextlib
+    import types
+
+    monkeypatch.setattr(deposit, "_kernel_lib", lambda name: FakeLib())
+    monkeypatch.setattr(deposit, "_check_kernel_inputs", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    spec = TSpec(0.5, 8)
+    before = deposit.launches["deposit_bwd"]
+    for b, vp, c in ((1, 64, 4), (9, 128, 1), (70_000, 64, 1)):
+        rows = torch.empty((b, 8, vp), device="meta")
+        wt = torch.empty((b, c, vp), device="meta")
+        ct = torch.empty((b, c, 8, 64), device="meta")
+        grad_rows, grad_w = deposit.deposit_bwd(rows, wt, ct, spec=spec, dl=8, gaussian=True)
+        assert grad_rows.shape == (b, 8, vp) and grad_w.shape == (b, c, vp)
+        args = calls[-1]
+        assert args[5:10] == (b, vp, c, 8, 8) and args[14] == deposit.bwd_warps_per_atom(b, vp)
+    assert deposit.launches["deposit_bwd"] == before + 3
+
+
+@pytest.mark.parametrize("source", ["deposit_fwd.cu", "deposit_bwd.cu"])
+def test_warp_collectives_are_not_behind_a_branch(source):
+    """A __*_sync call that only some lanes of its mask reach hangs the warp
+    on the card, and nothing on the CPU runs the kernel.  Every such call in
+    the kernels must stand where all lanes reach it: not as the body of a
+    one-line `if`, and not as the right operand of && / || or a ?: branch."""
+    import re
+
+    from molvoxel_torch.ops._build import CSRC
+
+    call = r"__(shfl\w*|ballot|reduce\w*|any|all|match\w*)_sync\("
+    for n, line in enumerate((CSRC / source).read_text().splitlines(), 1):
+        code = line.split("//")[0]
+        if not re.search(call, code):
+            continue
+        assert not re.match(r"\s*(if|else)\b", code), f"{source}:{n}: {line.strip()}"
+        assert not re.search(r"(&&|\|\||\?)[^;]*" + call, code), f"{source}:{n}: {line.strip()}"

@@ -60,7 +60,31 @@ exit code:
    61-atom golden ligand at 32^3, sigma 1.0, 400 Adam steps at 3e-2 on
    (quaternion, shift) from a hidden pose drawn from a numpy seed; it must
    end below 0.05 A RMSD.
-7. kernels: one line {"kernels": [...]} with each kernel's launches, error,
+7. sliced_256: 4 ligands at 256^3, res 0.25, 4 channels, f32, each with a
+   random rotation and 0.5 A translation, through ``pick_slab_depth`` (64)
+   and ``voxelize_batch_sliced`` into a ``np.memmap``: 4 launches, held
+   against one full-depth launch under the same transform at 1e-5; host
+   clock of the call.  packing: 64 molecules at 64^3 packed
+   (``_packed_batch``) and unpacked, through the CUDA deposit and through
+   the separable product (gaussian_notrunc), at Vp 32 and 64 and C 1 and 4:
+   equal at 1e-5 (f32), both timed by CUDA-graph replay in turns; the route
+   ``voxelize_batch`` takes (unpacked, on both paths).
+8. library_store: a library of LIBRARY_RECORDS records synthesized from the
+   golden ligand (``write_library``, one all-hydrogen and one empty record
+   among them); the CLI writes its first 512 records to a bf16 grid store
+   at 48^3 with .dx volumes: every record slot, 16 sampled grids within
+   2^-7*max of the dense path, four .dx files.
+9. library_stream: the CLI's ``--throughput --trials 3`` (random rotation,
+   0.5 A translation, bf16, 64^3, superbatch 4096, chunk 1024, 2 parser
+   threads) on the whole library, plain, ``--wire`` and ``--presort``:
+   mols/s (median, min, max), 4 launches per superbatch, the native parser
+   used; the device's busy share of one pass (torch.profiler); the feeder
+   alone; and, on the first 4096 records without augmentation in f32,
+   ``stream_checksum`` against the sum of ``run_batches``' grids at rtol
+   1e-5, the wire checksum against the dequantized coordinates at 1e-5 and
+   against f32 at 2e-3, and the chunk loop under sync-debug "error".
+   The native parser's g++ build (native_build) runs after phase 2.
+10. kernels: one line {"kernels": [...]} with each kernel's launches, error,
    times and bound.
 Then the nvidia-smi line again, and last {"ok": true, "device": {...}}.
 
@@ -70,9 +94,11 @@ Needs one CUDA card; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -105,6 +131,82 @@ def load_golden(stem):
     import numpy as np
 
     return dict(np.load(GOLDENS / f"{stem}.npz", allow_pickle=False))
+
+
+def _fixed_width(values, width: int, decimals: int):
+    """(N,) floats -> (N, width) uint8 text, right-aligned like '%10.4f'."""
+    import numpy as np
+
+    q = np.rint(np.asarray(values, np.float64) * 10**decimals).astype(np.int64)
+    a = np.abs(q)
+    frac, ipart = a % 10**decimals, a // 10**decimals
+    out = np.full((len(q), width), ord(" "), np.uint8)
+    for k in range(decimals):
+        out[:, width - 1 - k] = ord("0") + (frac // 10**k) % 10
+    out[:, width - 1 - decimals] = ord(".")
+    ndig = np.floor(np.log10(np.maximum(ipart, 1))).astype(np.int64) + 1
+    pos = width - 2 - decimals
+    for k in range(int(ndig.max(initial=1))):
+        has = k < ndig
+        out[has, pos - k] = ord("0") + (ipart[has] // 10**k) % 10
+    neg = np.nonzero(q < 0)[0]
+    out[neg, pos - ndig[neg]] = ord("-")
+    return out
+
+
+def write_library(path, n_records: int, seed: int = 0, all_h_at: int = 7, empty_at: int = 300):
+    """Write an SDF V2000 library of ``n_records`` ligands, formatted by numpy.
+
+    Each record is the golden ligand of tests/goldens/lig_types_gaussian.npz
+    (types 0-3 as C, N, O, S), rotated by a random quaternion about its
+    centroid, each coordinate jittered by U(-0.3, 0.3) A, and cut to a random
+    subset of 20-61 of its atoms; all drawn from ``seed``.  Record
+    ``all_h_at`` holds five hydrogens and record ``empty_at`` no atom (both
+    voxelize to empty grids but keep their slots).  Returns the path."""
+    import numpy as np
+
+    g = np.load(GOLDENS / "lig_types_gaussian.npz")
+    base = g["coords"].astype(np.float64)
+    centroid = base.mean(0)
+    base = base - centroid
+    symbols = np.array([b"C  ", b"N  ", b"O  ", b"S  ", b"H  "])
+    types = g["channels"].astype(np.int64)
+    rng = np.random.default_rng(seed)
+    n = n_records
+    counts = rng.integers(20, base.shape[0] + 1, n)
+    counts[[i for i in (all_h_at, empty_at) if i < n]] = 0
+    counts[all_h_at] = 5 if all_h_at < n else 0
+    u = rng.uniform(size=(n, 3))
+    a, b = np.sqrt(1 - u[:, 0]), np.sqrt(u[:, 0])
+    q = np.stack([a * np.sin(2 * np.pi * u[:, 1]), a * np.cos(2 * np.pi * u[:, 1]),
+                  b * np.sin(2 * np.pi * u[:, 2]), b * np.cos(2 * np.pi * u[:, 2])], -1)
+    w, x, y, z = q.T
+    rot = np.stack([np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+                    np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+                    np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1)], -2)
+    pick = np.argsort(rng.uniform(size=(n, base.shape[0])), axis=1)  # a random atom order per record
+    rec = np.repeat(np.arange(n), counts)
+    slot = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts, counts)
+    atom = pick[rec, slot]
+    xyz = np.einsum("nij,nj->ni", rot[rec], base[atom]) + centroid
+    xyz += rng.uniform(-0.3, 0.3, size=xyz.shape)
+    sym = types[atom]
+    if all_h_at < n:
+        sym[rec == all_h_at] = 4
+    tail = np.frombuffer(b"  0  0  0  0  0  0  0  0  0  0  0  0\n", np.uint8)
+    lines = np.concatenate([_fixed_width(xyz[:, 0], 10, 4), _fixed_width(xyz[:, 1], 10, 4),
+                            _fixed_width(xyz[:, 2], 10, 4), np.full((len(sym), 1), ord(" "), np.uint8),
+                            symbols[sym].view(np.uint8).reshape(-1, 3), tail[None].repeat(len(sym), 0)], axis=1)
+    width = lines.shape[1]
+    text = lines.tobytes()
+    starts = (np.cumsum(counts) - counts) * width
+    parts = []
+    for i in range(n):
+        parts.append(f"lig{i}\n  molvoxel\n\n{counts[i]:3d}  0  0  0  0  0  0  0  0999 V2000\n".encode())
+        parts.append(text[starts[i]:starts[i] + counts[i] * width])
+        parts.append(b"M  END\n$$$$\n")
+    Path(path).write_bytes(b"".join(parts))
+    return Path(path)
 
 
 def bar(out_dtype, ref):
@@ -298,6 +400,323 @@ class KernelTimer:
         return statistics.median(start.elapsed_time(end) for start, end in self.events[name])
 
 
+LIBRARY_RECORDS = 50_000  # the JAX package's production stream (docs/DESIGN.md:254-268)
+SYMBOLS = ["C", "N", "O", "S"]
+
+
+def first_records(src: Path, n: int, dst: Path) -> Path:
+    """Copy the first ``n`` records of an SDF file to ``dst``."""
+    data = src.read_bytes()
+    end = 0
+    for _ in range(n):
+        end = data.index(b"$$$$\n", end) + 5
+    dst.write_bytes(data[:end])
+    return dst
+
+
+def phase_native_build():
+    """native_build: build the host parser with g++ into build/molvoxel_torch/ and load it."""
+    from molvoxel_torch import native
+    from molvoxel_torch.native import build
+
+    t0 = time.perf_counter()
+    path = build.build(force=True)
+    seconds = time.perf_counter() - t0
+    available = bool(native.NATIVE_AVAILABLE)
+    ok = path is not None and available and path.parent == build.BUILD_DIR
+    emit({"phase": "native_build", "seconds": seconds,
+          "library": None if path is None else str(path.relative_to(ROOT)),
+          "native_available": available, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("native_build failed: the host parser did not build or load")
+
+
+def phase_sliced_256(lig_xyz, tmp: Path, rng):
+    """sliced_256: 4 ligands at 256^3, res 0.25, 4 channels, f32, a random
+    rotation and 0.5 A translation each, through pick_slab_depth and
+    voxelize_batch_sliced into a np.memmap; held against one full-depth
+    launch under the same transform.  Returns its kernels-line fields."""
+    import numpy as np
+    import torch
+
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.ops import batch, deposit
+
+    spec = GridSpec(0.25, 256)
+    b, c = 4, 4
+    slab = batch.pick_slab_depth(spec, c)
+    dev = lig_xyz.device
+    coords = lig_xyz[None].expand(b, -1, -1).contiguous()
+    w = torch.as_tensor(rng.uniform(0.0, 1.0, size=(b, lig_xyz.shape[0], c)).astype(np.float32), device=dev)
+    radii = torch.ones(lig_xyz.shape[0], device=dev)
+    out = np.memmap(tmp / "sliced_256.f32", dtype=np.float32, mode="w+", shape=(b, c, 256, 256, 256))
+
+    def sliced():
+        return batch.voxelize_batch_sliced(coords, w, radii, None, None, torch.Generator().manual_seed(5), 0.5,
+                                           spec=spec, slab_depth=slab, out=out, random_rotation=True)
+
+    torch.cuda.synchronize()
+    deposit.reset_launches()
+    t0 = time.perf_counter()
+    got = sliced()
+    first_s = time.perf_counter() - t0
+    launches = deposit.launches["deposit_fwd"]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sliced()
+        times.append(time.perf_counter() - t0)
+    full = batch.voxelize_batch(coords, w, radii, None, None, torch.Generator().manual_seed(5), 0.5, spec=spec,
+                                random_rotation=True)
+    err = max(float((full[i] - torch.from_numpy(np.asarray(got[i])).to(dev)).abs().max()) for i in range(b))
+    ok = got is out and slab == 64 and launches == 256 // slab and err <= 1e-5 and bool(torch.isfinite(full).all())
+    line = {"phase": "sliced_256", "case": "4lig_dim256_res025_c4_f32_rot_trans05_memmap", "slab_depth": slab,
+            "launches": launches, "max_abs_err_vs_full_depth": err, "tol": 1e-5, "first_call_s": first_s,
+            "call_s_median": statistics.median(times), "call_s_min": min(times), "call_s_max": max(times),
+            "grid_gib": out.nbytes / 2**30, "ok": bool(ok)}
+    emit(line)
+    del full, out, got
+    if not ok:
+        raise SystemExit("sliced_256 failed")
+    return line
+
+
+def phase_packing(lig_xyz, rng):
+    """packing: 64 small molecules at 64^3 packed (``_packed_batch``) and
+    unpacked, at Vp 32 and 64 and C 1 and 4, on both paths that the JAX
+    package packs: the CUDA deposit (packed as ``_choose_pack`` says) and
+    the separable product of gaussian_notrunc (as ``_choose_pack_separable``
+    says).  Grids equal at 1e-5 (f32), both timed by CUDA-graph replay in
+    turns (unpacked, packed, packed, unpacked); and the route
+    ``voxelize_batch`` takes (unpacked: its grid is the unpacked one, bit
+    for bit)."""
+    import numpy as np
+    import torch
+
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.ops import batch
+    from molvoxel_torch.ops.deposit import voxelize_deposit_batch
+    from molvoxel_torch.ops.separable import voxelize_separable_batch
+
+    spec = GridSpec(0.5, 64)
+    dev = lig_xyz.device
+    paths = {  # path: (unpacked op, pack table, density that voxelize_batch routes there)
+        "kernel": (lambda crd, ww, r, mask=None: voxelize_deposit_batch(crd, ww, r, spec=spec, mask=mask),
+                   batch._choose_pack, "gaussian"),
+        "separable": (lambda crd, ww, r, mask=None: voxelize_separable_batch(crd, ww, r, spec=spec, mask=mask),
+                      batch._choose_pack_separable, "gaussian_notrunc"),
+    }
+    lines = []
+    for vp in (32, 64):
+        n = min(vp, lig_xyz.shape[0])
+        xyz = lig_xyz[:n] - lig_xyz[:n].mean(0)
+        posed = batch.random_transform_batch(torch.Generator().manual_seed(vp), xyz[None].expand(64, -1, -1),
+                                             0.5, True)
+        coords = torch.zeros((64, vp, 3), device=dev)
+        coords[:, :n] = posed
+        mask = torch.zeros((64, vp), dtype=torch.bool, device=dev)
+        mask[:, :n] = True
+        radii = torch.ones(vp, device=dev)
+        for c in (1, 4):
+            w = torch.zeros((64, vp, c), device=dev)
+            w[:, :n] = torch.as_tensor(rng.uniform(0.2, 1.0, size=(64, n, c)).astype(np.float32), device=dev)
+            for path, (op, table, density) in paths.items():
+                pack = table(vp, c)
+                runs = {False: lambda: op(coords, w, radii, mask=mask),
+                        True: lambda: batch._packed_batch(op, coords, w, radii, mask, pack)}
+                grids, ms = {}, {False: [], True: []}
+                for packed in (False, True, True, False):
+                    grids[packed] = runs[packed]()
+                    ms[packed].append(time_graph_ms(runs[packed]))
+                err = float((grids[True] - grids[False]).abs().max())
+                routed = batch.voxelize_batch(coords, w, radii, mask, None, spec=spec, density_type=density)
+                unpacked_route = torch.equal(routed, grids[False])
+                line = {"phase": "packing", "path": path, "case": f"64mol_vp{vp}_c{c}_dim64_f32", "pack": pack,
+                        "packed_ms": statistics.mean(ms[True]), "unpacked_ms": statistics.mean(ms[False]),
+                        "packed_over_unpacked": statistics.mean(ms[True]) / statistics.mean(ms[False]),
+                        "max_abs_err": err, "tol": 1e-5, "route": "unpacked" if unpacked_route else "other",
+                        "ok": err <= 1e-5 and unpacked_route}
+                emit(line)
+                lines.append(line)
+                del grids, routed
+    for path in paths:
+        mine = [ln for ln in lines if ln["path"] == path]
+        emit({"phase": "packing_route", "path": path, "route": "unpacked",
+              "shapes_where_packing_is_faster": sum(ln["packed_ms"] < ln["unpacked_ms"] for ln in mine),
+              "shapes": len(mine)})
+    if not all(ln["ok"] for ln in lines):
+        raise SystemExit("packing failed: packed and unpacked grids differ, or voxelize_batch packed")
+
+
+def phase_library(tmp: Path, dev):
+    """library_store and library_stream: the CLI on a synthesized library
+    of LIBRARY_RECORDS records.  Returns the kernels-line fields."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from molvoxel_torch import cli
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.data.feed import SDFBatchFeeder, map_symbols, wire_scale
+    from molvoxel_torch.data.gridstore import GridShardReader
+    from molvoxel_torch.data.pipeline import PaddedBatch
+    from molvoxel_torch.native import parse_sdf_file
+    from molvoxel_torch.ops import deposit
+    from molvoxel_torch.ops.dense import voxelize_dense
+    from molvoxel_torch.parallel.stream import StreamingVoxelizer, _scan_chunks, stream_checksum
+
+    t_start = time.perf_counter()
+    lib = write_library(tmp / "lib.sdf", LIBRARY_RECORDS)
+    emit({"phase": "library", "records": LIBRARY_RECORDS, "bytes": lib.stat().st_size,
+          "write_s": time.perf_counter() - t_start})
+
+    # library_store: the first 512 records into a bf16 grid store at 48^3, with .dx volumes
+    t0 = time.perf_counter()
+    lib512 = first_records(lib, 512, tmp / "lib512.sdf")
+    store, dx = tmp / "store", tmp / "dx"
+    deposit.reset_launches()
+    rc = cli.main(["voxelize", str(lib512), "-o", str(store), "--dimension", "48", "--out-dtype", "bfloat16",
+                   "--dx", str(dx)])
+    launches = deposit.launches["deposit_fwd"]
+    reader = GridShardReader(store)
+    num_atoms = reader.num_atoms()
+    mols = [m.without_hydrogens() for m in parse_sdf_file(lib512)]
+    spec48 = GridSpec(0.5, 48)
+    sample = sorted({7, 300, *np.random.default_rng(1).choice(512, 14, replace=False).tolist()})
+    worst = 0.0
+    for i in sample:
+        m = mols[i]
+        got = reader[i]
+        if m.num_atoms == 0:
+            ok_i = num_atoms[i] == 0 and bool((got.float() == 0).all())
+            worst = max(worst, 0.0 if ok_i else float("inf"))
+            continue
+        crd = m.coords.astype(np.float32)
+        center = crd.astype(np.float64).mean(0).astype(np.float32)  # the feeder's center
+        types = map_symbols(np.array([s.encode() for s in m.symbols], dtype="|S4"),
+                            {s: k for k, s in enumerate(SYMBOLS)})
+        onehot = torch.eye(4, device=dev)[torch.as_tensor(types, device=dev).long()]
+        ref = voxelize_dense(torch.as_tensor(crd - center, device=dev), onehot, torch.ones(len(types), device=dev),
+                             spec=spec48)
+        err = float((got.float().to(dev) - ref.to(torch.bfloat16).float()).abs().max())
+        worst = max(worst, err / (2**-7 * max(float(ref.abs().max()), 1.0)))
+    dx_files = sorted(p.name for p in dx.glob("*.dx"))
+    ok = (rc == 0 and len(reader) == 512 and len(num_atoms) == 512 and num_atoms[7] == 0 and num_atoms[300] == 0
+          and reader.manifest["dtype"] == "bfloat16" and worst <= 1.0 and len(dx_files) == 4 and launches > 0)
+    emit({"phase": "library_store", "records": len(reader), "shards": len(reader.manifest["shards"]),
+          "zero_atom_slots": int((num_atoms == 0).sum()), "launches": launches, "sampled": len(sample),
+          "worst_err_over_bar": worst, "bar": "2^-7*max(1, max |ref|)", "dx_files": dx_files,
+          "seconds": time.perf_counter() - t0, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("library_store failed")
+
+    # library_stream: the production stream through the CLI, plain, --wire and --presort
+    t0 = time.perf_counter()
+    stream_lines = {}
+    base = ["voxelize", str(lib), "--throughput", "--trials", "3", "--random-rotation", "--random-translation", "0.5",
+            "--out-dtype", "bfloat16", "--dimension", "64"]
+    for label, flags in (("plain", []), ("wire", ["--wire"]), ("presort", ["--presort"])):
+        deposit.reset_launches()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(base + flags)
+        launches = deposit.launches["deposit_fwd"]
+        payload = json.loads(text.getvalue().strip().splitlines()[-1])
+        passes = 1 + 3  # the warm-up pass and three trials
+        per_sb = launches / (payload["superbatches"] * passes)
+        ok = (rc == 0 and per_sb == 4 and payload["molecules"] == LIBRARY_RECORDS - 2 and payload["native_shards"] > 0)
+        line = {"phase": "library_stream", "case": label, "mols_per_s_median": payload["median_mols_per_s"],
+                "mols_per_s_min": payload["min_mols_per_s"], "mols_per_s_max": payload["max_mols_per_s"],
+                "trials": payload["trials"], "molecules": payload["molecules"],
+                "superbatches": payload["superbatches"], "launches": launches,
+                "launches_per_superbatch": per_sb, "native_shards": payload["native_shards"], "ok": bool(ok)}
+        if label == "presort":  # the feeder and the deposit sort only records above 128 atoms
+            line.update(same_work_as_plain=True, why="presort acts above 128 atoms a record; these have 20-61")
+        emit(line)
+        stream_lines[label] = line
+        if not ok:
+            raise SystemExit(f"library_stream {label} failed")
+    spec64 = GridSpec(0.5, 64)
+    # the device's busy share of one plain pass (torch.profiler, device-kernel rows)
+    from torch.profiler import ProfilerActivity, profile
+
+    feeder = SDFBatchFeeder(lib, SYMBOLS, batch_size=4096, compact=True, workers=2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        stats, _ = stream_checksum(iter(feeder), spec64, chunk=1024, random_rotation=True, random_translation=0.5,
+                                   out_dtype="bfloat16", witness=True, prefetch_depth=4, seed=9)
+        pass_s = time.perf_counter() - tp
+    by_name = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+                     reverse=True)
+    busy_s = sum(us for us, _ in by_name) / 1e6
+    emit({"phase": "library_stream_profile", "case": "plain", "pass_s_profiled": pass_s, "device_busy_s": busy_s,
+          "device_busy_share": busy_s / pass_s, "molecules": stats.molecules,
+          "top": [{"name": name[:90], "ms": us / 1e3} for us, name in by_name[:8]]})
+    # the feeder alone: parse and assemble, no device
+    for label, make in (("compact", lambda f: iter(f)), ("wire", lambda f: f.iter_wire(spec64))):
+        f = SDFBatchFeeder(lib, SYMBOLS, batch_size=4096, compact=True, workers=2)
+        tf = time.perf_counter()
+        for _ in make(f):
+            pass
+        feed_s = time.perf_counter() - tf
+        emit({"phase": "library_feeder_alone", "case": label, "molecules": f.molecules_fed, "seconds": feed_s,
+              "mols_per_s": f.molecules_fed / feed_s, "native_shards": f.native_shards})
+
+    # checksums on the first 4096 records, no augmentation, f32, full read
+    lib4096 = first_records(lib, 4096, tmp / "lib4096.sdf")
+    batches = list(SDFBatchFeeder(lib4096, SYMBOLS, batch_size=4096, compact=True))
+    _, cs = stream_checksum(iter(batches), spec64, chunk=1024, out_dtype="float32")
+    want = torch.zeros((), dtype=torch.float64, device=dev)
+    sv = StreamingVoxelizer(spec64, batch_size=1024, out_dtype="float32")
+    sv.run_batches(SDFBatchFeeder(lib4096, SYMBOLS, batch_size=1024),
+                   lambda im, b: want.add_(im.sum(dtype=torch.float64)))
+    want = float(want)
+    wires = list(SDFBatchFeeder(lib4096, SYMBOLS, batch_size=4096).iter_wire(spec64))
+    _, cs_wire = stream_checksum(iter(wires), spec64, chunk=1024, out_dtype="float32", wire=True)
+    scale = wire_scale(spec64)
+    want_wire = torch.zeros((), dtype=torch.float64, device=dev)
+
+    def dequantized():
+        for wire, num_atoms, _ in wires:
+            types = wire[..., 3]
+            onehot = (types[..., None] == np.arange(4)).astype(np.float32)
+            for s in range(0, wire.shape[0], 1024):
+                sl = slice(s, s + 1024)
+                yield PaddedBatch(wire[sl, :, :3].astype(np.float32) / scale, onehot[sl], types[sl] >= 0, None, None,
+                                  num_atoms[sl])
+
+    sv.run_batches(dequantized(), lambda im, b: want_wire.add_(im.sum(dtype=torch.float64)))
+    want_wire = float(want_wire)
+    rel = abs(cs - want) / abs(want)
+    rel_wire = abs(cs_wire - want_wire) / abs(want_wire)
+    rel_quant = abs(cs_wire - want) / abs(want)
+    # no host sync in the chunk loop: one superbatch under sync-debug "error"
+    b0 = batches[0]
+    crd, typ, cen = (torch.as_tensor(a).to(dev) for a in (b0.coords, b0.types, b0.centers))
+    acc = torch.zeros((), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _scan_chunks(crd, typ, cen, gen, acc, chunk=1024, num_channels=4, radii=torch.ones(64, device=dev), rtab=None,
+                     random_translation=0.5, spec=spec64, density_type="gaussian", sigma=0.5, random_rotation=True,
+                     out_dtype="bfloat16", impl="auto", presorted=False, witness=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ok = rel <= 1e-5 and rel_wire <= 1e-5 and rel_quant <= 2e-3 and float(acc) > 0
+    emit({"phase": "library_stream_checksum", "records": 4096, "stream_checksum": cs, "run_batches_sum": want,
+          "rel_err": rel, "tol": 1e-5, "wire_checksum": cs_wire, "run_batches_sum_dequantized": want_wire,
+          "wire_rel_err_vs_dequantized": rel_wire, "wire_rel_err_vs_f32": rel_quant, "wire_tol_vs_f32": 2e-3,
+          "chunk_loop_host_syncs": 0, "seconds_after_stream": time.perf_counter() - t0, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("library_stream checksums disagree")
+    emit({"phase": "library_seconds", "total_s": time.perf_counter() - t_start})
+    return stream_lines
+
+
 def main() -> int:
     import torch
 
@@ -330,6 +749,7 @@ def main() -> int:
     report = [ln.strip() for name in _build.SOURCES for ln in _build.build_log(name).splitlines()
               if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source, "ptxas": report})
+    phase_native_build()
 
     lig = load_golden("lig_features_gaussian")
     prot = load_golden("protein_single_gaussian")
@@ -816,13 +1236,25 @@ def main() -> int:
     if not ok:
         raise SystemExit(f"pose refinement did not converge: RMSD {r0:.4f} -> {r1:.4f}")
 
-    # 7. kernels line
+    # 7-9. the library path: sliced 256^3 assembly, packing, the grid store and the stream
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        sliced = phase_sliced_256(lig_xyz, tmp, rng)
+        phase_packing(lig_xyz, rng)
+        stream = phase_library(tmp, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels[1]["launches_per_superbatch"] = stream["plain"]["launches_per_superbatch"]
+    kernels[2]["launches_per_sliced_call"] = sliced["launches"]
+
+    # 10. kernels line
     emit({"kernels": [
         {"name": f"{'deposit_bwd' if row == 4 else 'deposit_fwd'} (table row {row})", "route": "cuda",
          "source": f"molvoxel_torch/csrc/{'deposit_bwd' if row == 4 else 'deposit_fwd'}.cu",
          "replaces": REPLACES[row], "launches": k["launches"], "max_abs_err": k["max_abs_err"],
          "ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": None, "timed_case": k["case"]}
+         "library_ms": None, "timed_case": k["case"],
+         **{key: k[key] for key in ("launches_per_superbatch", "launches_per_sliced_call") if key in k}}
         for row, k in sorted(kernels.items())
     ]})
     print(smi, flush=True)

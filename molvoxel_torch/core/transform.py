@@ -1,8 +1,10 @@
 """Geometric transforms: quaternion rotations and random rigid transforms.
 
-Randomness comes from an explicit ``torch.Generator`` (a CPU generator: the
-few uniforms a transform needs are drawn on the host and moved to the
-coordinates' device, so a seed gives the same transform on every device).
+Randomness comes from an explicit ``torch.Generator``, and the uniforms are
+drawn on the generator's device.  A CPU generator (the API's) draws on the
+host and moves the few uniforms to the coordinates' device, so a seed gives
+the same transform on every device; a generator on the card (the stream's,
+``parallel/stream.py``) draws there, with no copy from the host.
 The sampling formula is Marsaglia/Shoemake's uniform unit quaternion:
 q = (sqrt(1-u1) sin(2pi u2), sqrt(1-u1) cos(2pi u2), sqrt(u1) sin(2pi u3),
 sqrt(u1) cos(2pi u3)).  Torch and ``jax.random`` give different uniforms
@@ -23,10 +25,14 @@ import torch
 _PI2 = 2.0 * math.pi
 
 
+def _draw_device(generator: torch.Generator | None):
+    return None if generator is None else generator.device
+
+
 def random_quaternion(generator: torch.Generator | None = None, batch: tuple[int, ...] = (),
                       dtype=torch.float32, device=None) -> torch.Tensor:
     """Uniform random unit quaternion(s) (w, x, y, z), shape batch + (4,)."""
-    u = torch.rand(tuple(batch) + (3,), generator=generator, dtype=dtype)
+    u = torch.rand(tuple(batch) + (3,), generator=generator, dtype=dtype, device=_draw_device(generator))
     u1, u2, u3 = u[..., 0], u[..., 1], u[..., 2]
     sq1 = torch.sqrt(1.0 - u1)
     sqr = torch.sqrt(u1)
@@ -72,7 +78,7 @@ def apply_quaternion(coords: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def random_translation_vector(generator: torch.Generator | None, magnitude: float, batch: tuple[int, ...] = (),
                               dtype=torch.float32, device=None) -> torch.Tensor:
     """Translation ~ U(-magnitude, magnitude)^3, shape batch + (3,)."""
-    u = torch.rand(tuple(batch) + (3,), generator=generator, dtype=dtype)
+    u = torch.rand(tuple(batch) + (3,), generator=generator, dtype=dtype, device=_draw_device(generator))
     t = (u * 2.0 - 1.0) * float(magnitude)
     return t.to(device) if device is not None else t
 

@@ -21,12 +21,12 @@ _SLAB_BUDGET = 1 << 24  # elements of the (V, slab, H, W) temporary
 
 def _axis_positions(spec: GridSpec, dtype, offset=0, count: int | None = None, device=None) -> torch.Tensor:
     """Voxel-center positions for axis indices [offset, offset + count):
-    ``idx * res - width / 2`` in the working dtype."""
+    ``idx * res - width / 2`` in the working dtype.  The scalars go in as
+    Python numbers, which the ops round to ``dtype`` as a tensor of them
+    would be rounded, so no host-to-device copy (a stream sync) is made."""
     count = spec.dimension if count is None else count
-    idx = torch.arange(count, dtype=dtype, device=device) + torch.tensor(offset, dtype=dtype, device=device)
-    res = torch.tensor(spec.resolution, dtype=dtype, device=device)
-    half = torch.tensor(spec.width / 2.0, dtype=dtype, device=device)
-    return idx * res - half
+    idx = torch.arange(count, dtype=dtype, device=device) + offset
+    return idx * spec.resolution - spec.width / 2.0
 
 
 def _per_axis_sq_deltas(coords: torch.Tensor, spec: GridSpec, d_offset=0, d_count: int | None = None):

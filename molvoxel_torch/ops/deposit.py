@@ -34,6 +34,7 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.config import GridSpec, round_up
@@ -111,9 +112,11 @@ def morton_keys(coords: torch.Tensor, spec: GridSpec, mask: torch.Tensor | None 
     """(B, Vp) int32 Morton (Z-order) cell keys; x bits most significant.
     Masked (padding) atoms key to 2^30, so they sort last."""
     cells = (1 << bits) - 1
-    lb = torch.tensor(spec.lower_bound, dtype=torch.float32, device=coords.device)
-    scale = torch.tensor(float(cells), dtype=torch.float32) / torch.tensor(max(spec.width, 1e-6), dtype=torch.float32)
-    cell = ((coords.to(torch.float32) - lb) * scale.to(coords.device)).clamp(0, cells).to(torch.int32)
+    # Python scalars: float32 arithmetic with the scalars rounded to float32,
+    # as numpy does (data.feed.morton_presort gives the same keys), and no
+    # host-to-device copy
+    scale = cells / max(spec.width, 1e-6)
+    cell = ((coords.to(torch.float32) - spec.lower_bound) * scale).clamp(0, cells).to(torch.int32)
     key = torch.zeros(coords.shape[:-1], dtype=torch.int32, device=coords.device)
     for i in range(bits):
         key = (
@@ -261,7 +264,9 @@ def prepare_deposit(coords, weights, radii, mask, spec: GridSpec, gaussian: bool
         wt = torch.where(mask[:, None, :], wt, torch.zeros((), dtype=torch.float32, device=wt.device))
         r2 = torch.where(mask, r2, torch.ones((), dtype=torch.float32, device=r2.device))
     r2_th = notrunc_r2_thresh(r2, sigma) if notrunc else r2
-    xs = coords[..., 0] - torch.tensor(float(d_offset), dtype=torch.float32, device=coords.device) * res
+    # the slab's shift as a float32 product, passed as a Python scalar (no
+    # host-to-device copy, so no stream sync)
+    xs = coords[..., 0] - float(np.float32(d_offset) * np.float32(res))
     zero = torch.zeros_like(r2)
     coef = (-(0.5 / (sigma * sigma))) / r2 if gaussian else zero
     rows = torch.stack([xs, coords[..., 1], coords[..., 2], r2_th, coef, zero, zero, zero], dim=1).contiguous()

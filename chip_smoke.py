@@ -84,8 +84,38 @@ exit code:
    1e-5, the wire checksum against the dequantized coordinates at 1e-5 and
    against f32 at 2e-3, and the chunk loop under sync-debug "error".
    The native parser's g++ build (native_build) runs after phase 2.
-10. kernels: one line {"kernels": [...]} with each kernel's launches, error,
-   times and bound.
+10. wrappers (before the library phases): ComplexWrapper over the golden
+   ligand (61 atoms) and pocket (407) of tests/goldens/pocket_types_gaussian.npz
+   at 48^3, res 0.5, on the card: against the dense path at 1e-5 with and
+   without a seeded random rotation and 0.5 A translation, against the
+   golden; ``visualize`` writes the fallback without PyMOL, and its eight
+   .dx volumes read back within 1e-5.
+11. interop_dataset: VoxelGridDataset over the whole library (64^3 x 4,
+   bf16, batch 64, random rotation and 0.5 A translation) through
+   DataLoader(batch_size=None, num_workers=0): one warm and two timed
+   passes (mols/s, molecules = records with atoms, one launch a batch);
+   its first 8 batches without augmentation against voxelize_batch at
+   2^-7*max; 20 steps of VoxelCNN(4, 64, (16, 32, 64)) + Linear(64, 1) +
+   Adam fed by it (finite loss, host-clock step ms).  interop_store:
+   GridStoreDataset over library_store's store through a shuffling
+   DataLoader with two spawned workers: 64 sampled items equal the reader's,
+   bit for bit.
+12. parallel (one rank, NCCL, no launcher): voxelize_batch_dp on the
+   headline batch bit for bit voxelize_batch under the same draws;
+   voxelize_depth_sharded for the ligand at 256^3 (gaussian, binary) and
+   the protein at 128^3 against one full-depth call at 1e-5;
+   voxelize_batch_2d's mass against its grids' sum at rtol 1e-5;
+   StreamingVoxelizer(mesh=...) over the first 4,096 records, augmented,
+   bit for bit the meshless stream.
+13. multiprocess: two spawned ranks over gloo, both on the one card:
+   stream_dp_multiprocess on the whole library (64^3 x 4, bf16, augmented;
+   per-rank molecules sum to the library's; mols/s), the first 512 records
+   into per-rank stores at 48^3 bf16 whose rows in rank order equal a
+   single-process stream's (2^-7*max; bitwise reported), and each rank's
+   depth slab of the rotated ligand at 256^3 over a (1, 2) mesh, the two
+   seeded apart, assembled against one full-depth call at 1e-5.
+14. kernels: one line {"kernels": [...]} with each kernel's launches (the
+   main paths' and, by phase, phases 10-13's), error, times and bound.
 Then the nvidia-smi line again, and last {"ok": true, "device": {...}}.
 
 Needs one CUDA card; imports nothing of JAX.
@@ -352,6 +382,13 @@ def bound_bwd(rows, wt, ct, live, spec, dl, gaussian):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = pairs * per_pair / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def same_bits(x, y):
+    """Whether two tensors hold the same bytes."""
+    import torch
+
+    return x.shape == y.shape and torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
 
 
 def grad_err(got, want):
@@ -717,6 +754,461 @@ def phase_library(tmp: Path, dev):
     return stream_lines
 
 
+def golden_complex():
+    """(ligand, pocket, center, expected) of tests/goldens/pocket_types_gaussian.npz:
+    its first 61 atoms are the golden ligand (types 0-3) and the other 407 the
+    pocket (types 4-7), as SimpleMolecules of C, N, O and S."""
+    import numpy as np
+
+    from molvoxel_torch.data import SimpleMolecule
+
+    g = load_golden("pocket_types_gaussian")
+    sym = np.asarray(SYMBOLS)
+    t = g["channels"].astype(np.int64)
+    lig = SimpleMolecule(g["coords"][:61].astype(np.float64), list(sym[t[:61]]), [], "ligand")
+    pocket = SimpleMolecule(g["coords"][61:].astype(np.float64), list(sym[t[61:] - 4]), [], "pocket")
+    return lig, pocket, g["center"], g["expected"]
+
+
+def phase_wrappers(tmp: Path):
+    """wrappers: ComplexWrapper over the golden ligand and pocket at 48^3,
+    res 0.5, on the card, against the same wrapper on the dense path at
+    1e-5, with and without a seeded random rotation and 0.5 A translation
+    (and against the golden, unrotated); then ``visualize`` writes the
+    fallback without PyMOL and its .dx volumes read back.  Returns the
+    forward launches."""
+    import numpy as np
+    import torch
+
+    from molvoxel_torch import create_voxelizer
+    from molvoxel_torch.data import AtomTypeGetter, ComplexPointCloudMaker, ComplexWrapper
+    from molvoxel_torch.ops import deposit
+    from molvoxel_torch.viz import Visualizer, read_dx
+
+    t0 = time.perf_counter()
+    lig, pocket, center, expected = golden_complex()
+    ag = AtomTypeGetter(SYMBOLS)
+    maker = ComplexPointCloudMaker(ag, None, ag, None, channel_type="types")
+    wrapper = ComplexWrapper(maker, create_voxelizer(resolution=0.5, dimension=48, device=DEVICE), Visualizer())
+    dense = ComplexWrapper(maker, create_voxelizer(resolution=0.5, dimension=48, device=DEVICE, impl="dense"))
+    grids, errs = {}, {}
+    deposit.reset_launches()
+    for rotate in (False, True):
+        kw = dict(center=center, radii=1.0, random_translation=0.5 if rotate else 0.0, random_rotation=rotate, key=7)
+        grids[rotate] = wrapper.run(lig, pocket, **kw)
+    torch.cuda.synchronize()
+    launches = deposit.launches["deposit_fwd"]
+    for rotate in (False, True):
+        kw = dict(center=center, radii=1.0, random_translation=0.5 if rotate else 0.0, random_rotation=rotate, key=7)
+        errs[rotate] = float((grids[rotate] - dense.run(lig, pocket, **kw)).abs().max())
+    golden_err = float(np.abs(grids[False].cpu().numpy() - expected).max())
+    image = grids[False]
+    result = wrapper.visualize(str(tmp / "wrappers" / "complex.pse"), lig, pocket, image, center)
+    dx_errs = {}
+    host = image.cpu().numpy()
+    for f in sorted(result.parent.glob("*.dx")):
+        group, cname = f.stem.split("_", 1)
+        channel = SYMBOLS.index(cname) + (4 if group == "Protein" else 0)
+        values, _, res = read_dx(f)
+        dx_errs[f.stem] = float(np.abs(values - host[channel]).max()) if values.shape == host[channel].shape else 1.0
+    ok = (launches == 2 and max(errs.values()) <= 1e-5 and golden_err <= 1e-5 and result.suffix == ".pml"
+          and len(dx_errs) == 8 and max(dx_errs.values()) <= 1e-5 and not torch.equal(grids[False], grids[True]))
+    emit({"phase": "wrappers", "case": "complex_lig61_pocket407_dim48_c8", "launches": launches,
+          "max_abs_err_vs_dense": errs[False], "max_abs_err_vs_dense_rot_trans05": errs[True],
+          "max_abs_err_vs_golden": golden_err, "tol": 1e-5, "visualize": result.name,
+          "dx_files": len(dx_errs), "dx_max_abs_err": max(dx_errs.values(), default=None),
+          "seconds": time.perf_counter() - t0, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("wrappers failed")
+    return launches
+
+
+def phase_interop(lib: Path, store: Path, dev):
+    """interop_dataset: VoxelGridDataset over the whole library in the
+    production stream configuration (64^3 x 4, bf16, batch 64, random
+    rotation and 0.5 A translation) through DataLoader(batch_size=None,
+    num_workers=0) on the card: mols/s of one warm pass and two timed; its
+    first 8 batches without augmentation against voxelize_batch on the same
+    PaddedBatch at 2^-7 x max; 20 training steps of VoxelCNN(4, 64, (16, 32,
+    64)) + Linear(64, 1) + Adam fed by it; and GridStoreDataset over the
+    library_store store through a shuffling DataLoader with two workers: 64
+    sampled items equal GridShardReader's bit for bit.  Returns the forward
+    launches."""
+    import hashlib
+
+    import torch
+    from torch.utils.data import DataLoader
+
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.data.feed import SDFBatchFeeder
+    from molvoxel_torch.data.gridstore import GridShardReader
+    from molvoxel_torch.interop import GridStoreDataset, VoxelGridDataset
+    from molvoxel_torch.nn import VoxelCNN
+    from molvoxel_torch.ops import deposit
+    from molvoxel_torch.ops.batch import voxelize_batch
+
+    spec64 = GridSpec(0.5, 64)
+    ds = VoxelGridDataset(lib, SYMBOLS, spec64, batch_size=64, out_dtype="bfloat16", augment=True,
+                          random_translation=0.5, seed=0, device=DEVICE)
+    loader = DataLoader(ds, batch_size=None, num_workers=0)
+
+    def one_pass():
+        molecules = 0
+        t0 = time.perf_counter()
+        for grids, counts in loader:
+            molecules += int((counts > 0).sum())
+        torch.cuda.synchronize()
+        return molecules, time.perf_counter() - t0
+
+    deposit.reset_launches()
+    passes = [one_pass() for _ in range(3)]  # one warm pass, two timed
+    launches = deposit.launches["deposit_fwd"]
+    timed = [s for _, s in passes[1:]]
+    molecules = passes[0][0]
+    batches_per_pass = -(-LIBRARY_RECORDS // 64)
+    rate = molecules / statistics.median(timed)
+    ok = all(m == LIBRARY_RECORDS - 2 for m, _ in passes) and launches == 3 * batches_per_pass
+    emit({"phase": "interop_dataset", "case": "voxel_grid_dataset_50k_dim64_c4_bf16_rot_trans05_batch64",
+          "molecules": molecules, "passes": len(passes), "launches": launches,
+          "launches_per_pass": launches / len(passes), "pass_s": [s for _, s in passes],
+          "mols_per_s_median": rate, "mols_per_s_min": molecules / max(timed),
+          "mols_per_s_max": molecules / min(timed), "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("interop_dataset failed: molecule count or launches")
+
+    # the first 8 batches without augmentation against voxelize_batch on the feeder's batches
+    deposit.reset_launches()
+    plain = VoxelGridDataset(lib, SYMBOLS, spec64, batch_size=64, out_dtype="bfloat16", device=DEVICE)
+    worst = 0.0
+    for k, ((grids, _), batch) in enumerate(zip(plain, SDFBatchFeeder(lib, SYMBOLS, batch_size=64))):
+        if k == 8:
+            break
+        ref = voxelize_batch(*(torch.as_tensor(a, device=dev) for a in (batch.coords, batch.weights)),
+                             torch.ones(batch.padded_atoms, device=dev),
+                             *(torch.as_tensor(a, device=dev) for a in (batch.mask, batch.centers)), None, 0.0,
+                             spec=spec64)
+        worst = max(worst, float((grids.float() - ref).abs().max()) / (2**-7 * max(float(ref.abs().max()), 1.0)))
+    launches += deposit.launches["deposit_fwd"]
+
+    # streamed into training: 20 steps fed by the augmented dataset
+    torch.manual_seed(0)
+    cnn = VoxelCNN(in_channels=4, features=64, widths=(16, 32, 64)).to(dev)
+    head = torch.nn.Linear(64, 1).to(dev)
+    opt = torch.optim.Adam([*cnn.parameters(), *head.parameters()], lr=1e-3)
+    feed = iter(DataLoader(ds, batch_size=None, num_workers=0))
+    losses, step_ms = [], []
+    deposit.reset_launches()
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grids, counts = next(feed)
+        label = counts.to(dev, non_blocking=True).float() / 61.0  # the atom fraction, a label the grid carries
+        loss = torch.nn.functional.mse_loss(head(cnn(grids.float()))[:, 0], label)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_launches = deposit.launches["deposit_fwd"]
+    launches += train_launches
+    del feed
+    ok = worst <= 1.0 and all(torch.isfinite(torch.tensor(losses))) and train_launches >= 20
+    emit({"phase": "interop_dataset_train", "case": "voxelcnn16_32_64_dim64_c4_fed_by_dataset", "steps": 20,
+          "first_loss": losses[0], "last_loss": losses[-1], "step_ms_median_after_2": statistics.median(step_ms[2:]),
+          "step_ms_min": min(step_ms[2:]), "step_ms_max": max(step_ms[2:]), "launches": train_launches,
+          "plain_8_batches_worst_err_over_bar": worst, "bar": "2^-7*max(1, max |ref|)", "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("interop_dataset failed: the plain batches disagree or the loss is not finite")
+
+    # the precomputed store through a shuffling DataLoader with two spawned workers
+    reader = GridShardReader(store)
+    num_atoms = reader.num_atoms()
+
+    def digest(grid):
+        return hashlib.sha1(grid.contiguous().view(torch.int16).numpy().tobytes()).hexdigest()
+
+    index = {digest(reader[i]): i for i in range(len(reader))}
+    sampled, matched = 0, 0
+    items = DataLoader(GridStoreDataset(store), batch_size=8, shuffle=True, num_workers=2,
+                       multiprocessing_context="spawn", generator=torch.Generator().manual_seed(3))
+    for grids, counts in items:
+        for grid, n in zip(grids, counts):
+            j = index.get(digest(grid))
+            matched += j is not None and same_bits(grid, reader[j]) and int(n) == int(num_atoms[j])
+            sampled += 1
+        if sampled >= 64:
+            break
+    del items
+    ok = sampled == 64 and matched == 64
+    emit({"phase": "interop_store", "case": "grid_store_dataset_512_dim48_bf16_shuffle_2_workers",
+          "sampled": sampled, "bitwise_equal_to_reader": matched, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("interop_store failed: sampled items differ from the store")
+    return launches
+
+
+def phase_parallel(lig_xyz, prot_xyz, lig_w, b_coords, b_w, b_mask, seed, lib4096: Path):
+    """parallel (one rank, NCCL): voxelize_batch_dp on the headline batch
+    against voxelize_batch under the same draws, bit for bit;
+    voxelize_depth_sharded for the ligand at 256^3 (gaussian and binary) and
+    the protein at 128^3 against one full-depth call under the same
+    transform at 1e-5; voxelize_batch_2d's mass against its grids' sum at
+    rtol 1e-5; StreamingVoxelizer(mesh=...) over the first 4,096 records
+    against the meshless stream under the same seed, bit for bit.  Returns
+    the forward launches by table row."""
+    import torch
+    import torch.distributed as dist
+
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.core.transform import do_random_transform
+    from molvoxel_torch.data.feed import SDFBatchFeeder
+    from molvoxel_torch.ops import deposit
+    from molvoxel_torch.ops.batch import voxelize_batch
+    from molvoxel_torch.ops.voxelize import voxelize
+    from molvoxel_torch.parallel import (
+        StreamingVoxelizer,
+        initialize_distributed,
+        make_mesh,
+        voxelize_batch_2d,
+        voxelize_batch_dp,
+        voxelize_depth_sharded,
+    )
+
+    t_start = time.perf_counter()
+    dev = b_coords.device
+    initialize_distributed(device=DEVICE)  # one rank, no launcher
+    mesh = make_mesh(device=DEVICE)
+    launches = {1: 0, 2: 0, 3: 0}
+    lines = []
+    try:
+        spec64 = GridSpec(0.5, 64)
+        ones = torch.ones(b_coords.shape[1], device=dev)
+        deposit.reset_launches()
+        dp = voxelize_batch_dp(b_coords, b_w, ones, b_mask, None, torch.Generator().manual_seed(seed), 0.5,
+                               mesh=mesh, spec=spec64, random_rotation=True, out_dtype="bfloat16")
+        full = dp.full_tensor()
+        torch.cuda.synchronize()
+        n = deposit.launches["deposit_fwd"]
+        launches[1] += n
+        ref = voxelize_batch(b_coords, b_w, ones, b_mask, None, torch.Generator().manual_seed(seed), 0.5,
+                             spec=spec64, random_rotation=True, out_dtype="bfloat16")
+        bitwise = same_bits(full, ref)
+        lines.append({"case": "dp_headline_64lig_dim64_c4_bf16_rot_trans05", "launches": n,
+                      "placements": [str(p) for p in dp.placements], "bitwise_equal_to_voxelize_batch": bitwise,
+                      "ok": bitwise and n == 1})
+        del dp, full, ref
+        prot_w = torch.ones((prot_xyz.shape[0], 1), device=dev)
+        for label, xyz, w, spec, density, row in (
+            ("depth_lig_dim256_gaussian_f32_rot_trans05", lig_xyz, lig_w, GridSpec(0.25, 256), "gaussian", 2),
+            ("depth_lig_dim256_binary_f32_rot_trans05", lig_xyz, lig_w, GridSpec(0.25, 256), "binary", 3),
+            ("depth_prot3262_dim128_gaussian_f32_rot_trans05", prot_xyz, prot_w, GridSpec(0.5, 128), "gaussian", 1),
+        ):
+            radii = torch.ones(xyz.shape[0], device=dev)
+            deposit.reset_launches()
+            out = voxelize_depth_sharded(xyz, w, radii, None, None, torch.Generator().manual_seed(11), 0.5, mesh=mesh,
+                                         spec=spec, density_type=density, random_rotation=True)
+            full = out.full_tensor()
+            torch.cuda.synchronize()
+            n = deposit.launches["deposit_fwd"]
+            launches[row] += n
+            placed = do_random_transform(torch.Generator().manual_seed(11), xyz, None, 0.5, True)
+            err = float((full - voxelize(placed, w, radii, spec=spec, density_type=density)).abs().max())
+            lines.append({"case": label, "row": row, "launches": n, "placements": [str(p) for p in out.placements],
+                          "max_abs_err_vs_full_depth": err, "tol": 1e-5, "ok": err <= 1e-5 and n >= 1})
+            del out, full
+        deposit.reset_launches()
+        grids, mass = voxelize_batch_2d(b_coords, b_w, ones, b_mask, None, torch.Generator().manual_seed(seed), 0.5,
+                                        mesh=mesh, spec=spec64, random_rotation=True)
+        total = float(grids.full_tensor().double().sum())
+        n = deposit.launches["deposit_fwd"]
+        launches[1] += n
+        rel = abs(float(mass.full_tensor()) - total) / abs(total)
+        lines.append({"case": "2d_headline_64lig_dim64_c4_f32_rot_trans05", "launches": n, "mass": float(
+            mass.full_tensor()), "grid_sum": total, "rel_err": rel, "tol": 1e-5, "ok": rel <= 1e-5 and n == 1})
+        del grids, mass
+
+        kept = []
+        kw = dict(batch_size=64, out_dtype="bfloat16", random_rotation=True, random_translation=0.5, seed=21,
+                  device=DEVICE)
+        deposit.reset_launches()
+        t0 = time.perf_counter()
+        stats = StreamingVoxelizer(spec64, mesh=mesh, **kw).run_batches(
+            SDFBatchFeeder(lib4096, SYMBOLS, batch_size=64), lambda im, b: kept.append(im.full_tensor()))
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        n = deposit.launches["deposit_fwd"]
+        launches[1] += n
+        equal = [0]
+
+        def compare(im, b):
+            equal[0] += same_bits(im, kept[0])
+            kept.pop(0)
+
+        StreamingVoxelizer(spec64, **kw).run_batches(SDFBatchFeeder(lib4096, SYMBOLS, batch_size=64), compare)
+        lines.append({"case": "mesh_stream_4096_dim64_c4_bf16_rot_trans05", "launches": n, "batches": stats.batches,
+                      "molecules": stats.molecules, "mesh_stream_s": mesh_s,
+                      "batches_bitwise_equal_to_meshless": equal[0],
+                      "ok": equal[0] == stats.batches == 64 and n == 64})
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    for line in lines:
+        emit({"phase": "parallel", "world_size": 1, "backend": backend, **line})
+    emit({"phase": "parallel_seconds", "total_s": time.perf_counter() - t_start})
+    if not all(line["ok"] for line in lines):
+        raise SystemExit("parallel failed")
+    return launches
+
+
+def multiprocess_rank(rank: int, world: int, init_file: str, lib: str, lib512: str, out: str):
+    """One rank of the multiprocess phase (a spawned process): a warm-up
+    stream of 512 records, the whole library with no store (timed), the 512
+    records into ``out/store/proc-NNN`` at 48^3 bf16 with no augmentation,
+    and its depth slab of the rotated ligand at 256^3 over a (1, 2) mesh
+    (``out/slab<rank>.npy``).  Writes ``out/rank<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.ops import deposit
+    from molvoxel_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        stream_dp_multiprocess,
+        voxelize_depth_sharded,
+    )
+
+    initialize_distributed(backend="gloo", device=DEVICE, init_method=f"file://{init_file}", world_size=world,
+                           rank=rank)
+    try:
+        mesh = make_mesh(device=DEVICE)
+        spec64, spec48 = GridSpec(0.5, 64), GridSpec(0.5, 48)
+        kw = dict(mesh=mesh, batch_size=64, out_dtype="bfloat16")
+        aug = dict(random_rotation=True, random_translation=0.5)
+        stream_dp_multiprocess(lib512, SYMBOLS, spec64, **kw, **aug)  # warm-up
+        deposit.reset_launches()
+        dist.barrier()
+        t0 = time.perf_counter()
+        stats = stream_dp_multiprocess(lib, SYMBOLS, spec64, **kw, **aug)
+        wall = time.perf_counter() - t0
+        lib_launches = deposit.launches["deposit_fwd"]
+        deposit.reset_launches()
+        store = stream_dp_multiprocess(lib512, SYMBOLS, spec48, store_root=Path(out) / "store", **kw)
+        store_launches = deposit.launches["deposit_fwd"]
+        # the ligand at 256^3 over a (1, 2) mesh, each rank's generator seeded apart: its slab
+        lig = load_golden("lig_features_gaussian")
+        xyz = torch.as_tensor(lig["coords"] - lig["center"], device=DEVICE)
+        w = torch.as_tensor(lig["channels"][:, :4].astype(np.float32), device=DEVICE)
+        deposit.reset_launches()
+        slab = voxelize_depth_sharded(xyz, w, torch.ones(xyz.shape[0], device=DEVICE), None, None,
+                                      torch.Generator().manual_seed(100 + rank), 0.5,
+                                      mesh=make_mesh(1, 2, device=DEVICE), spec=GridSpec(0.25, 256),
+                                      random_rotation=True)
+        np.save(Path(out) / f"slab{rank}.npy", slab.to_local().cpu().numpy())
+        result = {"rank": rank, "device": str(mesh.device_type), "backend": dist.get_backend(),
+                  "molecules": stats.molecules, "batches": stats.batches, "wall_s": wall,
+                  "mols_per_s": stats.molecules / wall, "launches": lib_launches,
+                  "store_molecules": store.molecules, "store_launches": store_launches,
+                  "depth_launches": deposit.launches["deposit_fwd"]}
+        (Path(out) / f"rank{rank}.json").write_text(json.dumps(result))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multiprocess(lib: Path, lib512: Path, tmp: Path, dev):
+    """multiprocess: stream_dp_multiprocess on two spawned ranks over gloo,
+    both on the one card: the whole library with no store (per-rank
+    molecules summing to the library's, and mols/s), then the first 512
+    records into per-rank stores at 48^3 bf16 whose rows, in rank order,
+    equal a single-process stream's grids; each rank's depth slab of the
+    rotated ligand, assembled, against one full-depth call.  Returns the
+    forward launches by table row."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.core.transform import do_random_transform
+    from molvoxel_torch.data.feed import SDFBatchFeeder
+    from molvoxel_torch.data.gridstore import GridShardReader, read_grid_shards
+    from molvoxel_torch.ops.voxelize import voxelize
+    from molvoxel_torch.parallel import StreamingVoxelizer
+
+    out = tmp / "multiprocess"
+    out.mkdir()
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=multiprocess_rank, args=(r, 2, str(out / "pg"), str(lib), str(lib512), str(out)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        raise SystemExit(f"multiprocess failed: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    molecules = sum(r["molecules"] for r in ranks)
+    wall = max(r["wall_s"] for r in ranks)
+    # a rank whose stripe has run dry launches all-padding steps until the other's is done
+    ok = molecules == LIBRARY_RECORDS - 2 and all(r["launches"] >= r["batches"] > 0 for r in ranks)
+    emit({"phase": "multiprocess", "case": "stream_dp_multiprocess_2_ranks_gloo_1_card_50k_dim64_c4_bf16_rot_trans05",
+          "ranks": ranks, "molecules": molecules, "mols_per_s": molecules / wall, "wall_s": wall,
+          "seconds_with_spawn": seconds, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("multiprocess failed: per-rank molecules do not sum to the library's")
+
+    # the two stores in rank order against one single-process stream of the same records
+    manifests, rows = [], []
+    for r in range(2):
+        grids, manifest = read_grid_shards(out / "store" / f"proc-{r:03d}")
+        manifests.append(manifest)
+        rows.append(grids)
+    got = torch.cat(rows)
+    want = []
+    StreamingVoxelizer(GridSpec(0.5, 48), batch_size=64, bucket=128, out_dtype="bfloat16", device=DEVICE).run_batches(
+        SDFBatchFeeder(lib512, SYMBOLS, batch_size=64, bucket=128), lambda im, b: want.append(im.cpu()))
+    want = torch.cat(want)[:512]
+    err = float((got.float() - want.float()).abs().max()) if got.shape == want.shape else float("inf")
+    tol = 2**-7 * max(float(want.float().abs().max()), 1.0)
+    num_atoms = np.concatenate([GridShardReader(out / "store" / f"proc-{r:03d}").num_atoms() for r in range(2)])
+    ok = (got.shape[0] == 512 and err <= tol and [m["process_index"] for m in manifests] == [0, 1]
+          and all(m["num_processes"] == 2 and m["final"] for m in manifests) and int((num_atoms == 0).sum()) == 2)
+    emit({"phase": "multiprocess_store", "case": "512_records_dim48_c4_bf16_2_ranks",
+          "rows_per_rank": [int(g.shape[0]) for g in rows], "zero_atom_rows": int((num_atoms == 0).sum()),
+          "max_abs_err_vs_single_process": err, "tol": tol, "bitwise_equal": same_bits(got, want),
+          "launches": sum(r["store_launches"] for r in ranks), "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("multiprocess_store failed")
+
+    # the two ranks' depth slabs of the rotated ligand against one full-depth call under rank 0's draw
+    lig = load_golden("lig_features_gaussian")
+    xyz = torch.as_tensor(lig["coords"] - lig["center"], device=dev)
+    w = torch.as_tensor(lig["channels"][:, :4].astype(np.float32), device=dev)
+    placed = do_random_transform(torch.Generator().manual_seed(100), xyz, None, 0.5, True)
+    full = voxelize(placed, w, torch.ones(xyz.shape[0], device=dev), spec=GridSpec(0.25, 256)).cpu()
+    slabs = [torch.from_numpy(np.load(out / f"slab{r}.npy")) for r in range(2)]
+    err = float((torch.cat(slabs, dim=1) - full).abs().max()) if sum(x.shape[1] for x in slabs) == full.shape[1] \
+        else float("inf")
+    launches = [r["depth_launches"] for r in ranks]
+    ok = err <= 1e-5 and launches == [1, 1]
+    emit({"phase": "multiprocess_depth", "case": "lig_dim256_c4_f32_rot_trans05_mesh_1x2_seeded_apart",
+          "slab_planes": [int(x.shape[1]) for x in slabs], "launches": launches, "max_abs_err_vs_full_depth": err,
+          "tol": 1e-5, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("multiprocess_depth failed")
+    return {1: sum(r["launches"] + r["store_launches"] for r in ranks), 2: sum(launches)}
+
+
 def main() -> int:
     import torch
 
@@ -803,9 +1295,6 @@ def main() -> int:
         # a large batch of small grids
         ("lig512_dim32_gauss_bf16", lig_xyz, 4, 512, 32, 0.5, "gaussian", torch.bfloat16, None, False),
     ]
-
-    def same_bits(x, y):
-        return torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
 
     def prepared(xyz, c, b, dim, res, density, slab, channelwise):
         spec = GridSpec(resolution=res, dimension=dim)
@@ -1236,25 +1725,38 @@ def main() -> int:
     if not ok:
         raise SystemExit(f"pose refinement did not converge: RMSD {r0:.4f} -> {r1:.4f}")
 
-    # 7-9. the library path: sliced 256^3 assembly, packing, the grid store and the stream
+    # 7-9. the library path: sliced 256^3 assembly, packing, the grid store and the stream;
+    # 10-13. the wrappers, the torch datasets, the sharded calls and two ranks on the card
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         sliced = phase_sliced_256(lig_xyz, tmp, rng)
         phase_packing(lig_xyz, rng)
+        by_phase = {row: {} for row in (1, 2, 3)}
+        by_phase[1]["wrappers"] = phase_wrappers(tmp)
         stream = phase_library(tmp, dev)
+        by_phase[1]["interop_dataset"] = phase_interop(tmp / "lib.sdf", tmp / "store", dev)
+        for row, n in phase_parallel(lig_xyz, prot_xyz, lig_w[0], b_coords, b_w, b_mask, seed,
+                                     tmp / "lib4096.sdf").items():
+            by_phase[row]["parallel"] = n
+        for row, n in phase_multiprocess(tmp / "lib.sdf", tmp / "lib512.sdf", tmp, dev).items():
+            by_phase[row]["multiprocess"] = n
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels[1]["launches_per_superbatch"] = stream["plain"]["launches_per_superbatch"]
     kernels[2]["launches_per_sliced_call"] = sliced["launches"]
+    for row, counts in by_phase.items():
+        kernels[row]["launches_by_phase"] = {"main_path": kernels[row]["launches"], **counts}
+        kernels[row]["launches"] += sum(counts.values())
 
-    # 10. kernels line
+    # 14. kernels line
     emit({"kernels": [
         {"name": f"{'deposit_bwd' if row == 4 else 'deposit_fwd'} (table row {row})", "route": "cuda",
          "source": f"molvoxel_torch/csrc/{'deposit_bwd' if row == 4 else 'deposit_fwd'}.cu",
          "replaces": REPLACES[row], "launches": k["launches"], "max_abs_err": k["max_abs_err"],
          "ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": None, "timed_case": k["case"],
-         **{key: k[key] for key in ("launches_per_superbatch", "launches_per_sliced_call") if key in k}}
+         **{key: k[key] for key in ("launches_by_phase", "launches_per_superbatch", "launches_per_sliced_call")
+            if key in k}}
         for row, k in sorted(kernels.items())
     ]})
     print(smi, flush=True)

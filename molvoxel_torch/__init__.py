@@ -13,9 +13,23 @@ For gradients (training, pose refinement) use ``ops.voxelize.voxelize``,
 ``ops.batch.voxelize_batch`` or ``nn.VoxelizeLayer``.
 """
 
-from .core.config import GridSpec, VoxelizerConfig
-from .core.transform import RandomTransform, Transform
-from .voxelizer import Voxelizer, create_random_transform, create_voxelizer
+import torch as _torch
+
+# torch's CPU exp sets itself up on its first call.  When that first call
+# runs on several threads at once, part of its output can come back wrong
+# (seen with torch 2.13.0+cpu on an AVX-512 host: in 6 of 40 processes, up
+# to 1.5e-4 relative, in the first call only; tools/torch_first_exp_probe.py
+# counts them).  One call on one element, on this thread, does the set-up;
+# the CPU paths' densities call exp on large tensors, which torch splits
+# over threads.
+_torch.exp(_torch.zeros(1))
+_torch.exp(_torch.zeros(1, dtype=_torch.float64))
+
+from .core.config import GridSpec, VoxelizerConfig  # noqa: E402
+from .core.transform import RandomTransform, Transform  # noqa: E402
+from .voxelizer import Voxelizer, create_random_transform, create_voxelizer  # noqa: E402
+
+__version__ = "0.1.0"
 
 __all__ = [
     "GridSpec",
@@ -25,4 +39,5 @@ __all__ = [
     "Voxelizer",
     "create_random_transform",
     "create_voxelizer",
+    "__version__",
 ]

@@ -30,7 +30,7 @@ import torch
 from ..core.config import DENSITY_TYPE_LIST, RADII_TYPE_LIST, GridSpec, VoxelizerConfig, small_atom_bucket
 from ..core.transform import RandomTransform, do_random_transform
 from ..ops.deposit import check_kernel_dtype
-from ..ops.voxelize import voxelize
+from ..ops.voxelize import default_impl, voxelize  # noqa: F401  (default_impl: the JAX package's name here)
 
 
 def _resolve_device(device) -> torch.device:
@@ -549,3 +549,10 @@ def create_random_transform(
     if library not in ("jax", "numpy", "numba", "torch"):
         raise ValueError(f"unknown library {library!r}")
     return RandomTransform(random_translation, random_rotation)
+
+
+def default_backend_impl(device="cuda") -> str:
+    """The implementation a voxelizer on ``device`` runs: "cuda" (the
+    kernels) on the card, the default; "dense" on the CPU.  It reports and
+    does not probe: a forward on a CUDA voxelizer with no card raises."""
+    return "cuda" if torch.device(device).type == "cuda" else "dense"

@@ -1,7 +1,16 @@
 """Configuration, density functions and rigid transforms."""
 
-from .config import GridSpec, VoxelizerConfig, atom_bucket, round_up, small_atom_bucket
-from .density import binary_sq, density_sq, gaussian_sq
+from .config import (
+    DENSITY_TYPE_LIST,
+    RADII_TYPE_LIST,
+    GridSpec,
+    VoxelizerConfig,
+    atom_bucket,
+    grid_flat_padding,
+    round_up,
+    small_atom_bucket,
+)
+from .density import binary_sq, density_sq, gaussian_notrunc_sq, gaussian_sq
 from .state import config_from_dict, transform_from_arrays
 from .transform import (
     RandomTransform,
@@ -11,17 +20,22 @@ from .transform import (
     do_transform,
     quaternion_to_matrix,
     random_quaternion,
+    random_translation_vector,
 )
 
 __all__ = [
+    "DENSITY_TYPE_LIST",
+    "RADII_TYPE_LIST",
     "GridSpec",
     "VoxelizerConfig",
     "atom_bucket",
+    "grid_flat_padding",
     "round_up",
     "small_atom_bucket",
     "binary_sq",
     "density_sq",
     "gaussian_sq",
+    "gaussian_notrunc_sq",
     "config_from_dict",
     "transform_from_arrays",
     "RandomTransform",
@@ -31,4 +45,5 @@ __all__ = [
     "do_transform",
     "quaternion_to_matrix",
     "random_quaternion",
+    "random_translation_vector",
 ]

@@ -146,3 +146,10 @@ def small_atom_bucket(num_atoms: int) -> int:
     if n <= 64:
         return 64
     return atom_bucket(n)
+
+
+def grid_flat_padding(spec: GridSpec, lane: int = 128) -> tuple[int, int]:
+    """(HW, HW_padded): the flattened trailing plane size and its pad to a
+    multiple of ``lane`` (the JAX package's TPU lane width by default)."""
+    hw = spec.dimension * spec.dimension
+    return hw, round_up(hw, lane)

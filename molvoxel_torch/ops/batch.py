@@ -19,7 +19,13 @@ import numpy as np
 import torch
 
 from ..core.config import GridSpec
-from ..core.transform import quaternion_to_matrix, random_quaternion, random_translation_vector, rotate
+from ..core.transform import (  # noqa: F401  (do_random_transform: the JAX package's name here)
+    do_random_transform,
+    quaternion_to_matrix,
+    random_quaternion,
+    random_translation_vector,
+    rotate,
+)
 from .deposit import (
     CHUNK,
     check_density,
@@ -30,7 +36,7 @@ from .deposit import (
 )
 from .dense import voxelize_dense, voxelize_dense_channelwise
 from .separable import voxelize_separable_batch, voxelize_separable_batch_channelwise
-from .voxelize import notrunc_separable, resolve_impl
+from .voxelize import default_batch_impl, notrunc_separable, resolve_impl  # noqa: F401  (the JAX package's name)
 
 # The TPU kernel's output-tile budget, copied from the JAX package
 # (_OUT_BUDGET, molvoxel_tpu/ops/pallas_deposit.py:63) with its whole-row
@@ -39,35 +45,52 @@ from .voxelize import notrunc_separable, resolve_impl
 # re-derived on the H100 (ROADMAP).
 _OUT_BUDGET = 5 * 2**20
 
-def random_transform_batch(generator: torch.Generator | None, coords: torch.Tensor, random_translation: float,
-                           random_rotation: bool) -> torch.Tensor:
-    """Apply an independent random rotation (about the origin) and
-    translation to every molecule of (B, V, 3) coords."""
-    b = coords.shape[0]
-    if random_rotation:
-        q = random_quaternion(generator, (b,))
+
+def draw_transforms(generator: torch.Generator | None, b: int, random_translation: float,
+                    random_rotation: bool) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """(quaternions (b, 4) or None, translations (b, 3) or None): the
+    draws ``random_transform_batch`` makes for a batch of ``b``, in its
+    order, on the generator's device."""
+    q = random_quaternion(generator, (b,)) if random_rotation else None
+    t = random_translation_vector(generator, random_translation, (b,)) if random_translation > 0.0 else None
+    return q, t
+
+
+def apply_transforms(coords: torch.Tensor, transforms) -> torch.Tensor:
+    """Rotate (about the origin) then translate each molecule of (B, V, 3)
+    coords by its row of ``transforms`` (``draw_transforms``'s pair)."""
+    q, t = transforms
+    if q is not None:
         coords = rotate(coords, quaternion_to_matrix(q).to(coords.device))
-    if random_translation > 0.0:
-        t = random_translation_vector(generator, random_translation, (b,))
+    if t is not None:
         coords = coords + t.to(device=coords.device, dtype=coords.dtype)[:, None, :]
     return coords
 
 
+def random_transform_batch(generator: torch.Generator | None, coords: torch.Tensor, random_translation: float,
+                           random_rotation: bool) -> torch.Tensor:
+    """Apply an independent random rotation (about the origin) and
+    translation to every molecule of (B, V, 3) coords."""
+    return apply_transforms(coords, draw_transforms(generator, coords.shape[0], random_translation, random_rotation))
+
+
 def _place(coords, weights, radii, mask, centers, generator, random_translation, *, spec, resolved, separable,
-           channelwise, random_rotation, presorted):
+           channelwise, random_rotation, presorted, transforms=None):
     """Center, Morton-sort (kernel path, > CHUNK atoms) and transform a batch:
     the part of ``voxelize_batch`` before the deposit.  Sorting comes BEFORE
     the random transform: rigid transforms preserve locality, so one sort
-    serves every augmented sample.  Returns (coords, weights, radii, mask,
-    presorted)."""
+    serves every augmented sample.  ``transforms`` (drawn beforehand) takes
+    the place of the generator's draw.  Returns (coords, weights, radii,
+    mask, presorted)."""
     if centers is not None:
         coords = coords - centers[:, None, :].to(coords.dtype)
     if resolved == "cuda" and not separable and not channelwise and coords.shape[1] > CHUNK and not presorted:
         r_atoms = radii if radii.ndim == 2 else torch.as_tensor(radii, dtype=torch.float32).expand(coords.shape[:2])
         coords, weights, radii, mask = sort_atoms_spatially(coords, weights, r_atoms, mask, spec)
         presorted = True
-    coords = random_transform_batch(generator, coords, float(random_translation), random_rotation)
-    return coords, weights, radii, mask, presorted
+    if transforms is None:
+        transforms = draw_transforms(generator, coords.shape[0], float(random_translation), random_rotation)
+    return apply_transforms(coords, transforms), weights, radii, mask, presorted
 
 
 def _deposit(coords, weights, radii, mask, *, spec, density_type, sigma, channelwise, resolved, separable,
@@ -124,6 +147,8 @@ def voxelize_batch(
     d_count: int | None = None,
     out_dtype="float32",
     presorted: bool = False,
+    materialize: bool = False,
+    transforms=None,
 ) -> torch.Tensor:
     """Voxelize a padded batch of point clouds -> (B, C, Dl, H, W) of ``out_dtype``.
 
@@ -136,6 +161,12 @@ def voxelize_batch(
       d_offset/d_count: optional depth slab.
       out_dtype: "float32", "bfloat16" or "float8_e4m3fn"; accumulation is f32.
       presorted: atoms already arrive in Morton order, so no sort is needed.
+      materialize: accepted for the JAX package's signature (there it fences
+        XLA's folding of the grid) and ignored: the kernel writes every grid.
+      transforms: (quaternions (B, 4) or None, translations (B, 3) or None)
+        drawn beforehand (``draw_transforms``), used in place of drawing from
+        ``generator`` (the sharded paths draw a whole batch once and hand
+        each rank its rows).
     """
     check_density(density_type)
     odt = out_torch_dtype(out_dtype)
@@ -143,7 +174,8 @@ def voxelize_batch(
     separable = notrunc_separable(density_type, impl, resolved, coords.shape[1], spec, d_count, channelwise)
     coords, weights, radii, mask, presorted = _place(
         coords, weights, radii, mask, centers, generator, random_translation, spec=spec, resolved=resolved,
-        separable=separable, channelwise=channelwise, random_rotation=random_rotation, presorted=presorted)
+        separable=separable, channelwise=channelwise, random_rotation=random_rotation, presorted=presorted,
+        transforms=transforms)
     return _deposit(coords, weights, radii, mask, spec=spec, density_type=density_type, sigma=sigma,
                     channelwise=channelwise, resolved=resolved, separable=separable, radii_batched=radii_batched,
                     d_offset=d_offset, d_count=d_count, odt=odt, presorted=presorted)

@@ -39,6 +39,12 @@ def default_impl(coords: torch.Tensor) -> str:
     return "cuda" if coords.is_cuda else "dense"
 
 
+def default_batch_impl(coords: torch.Tensor) -> str:
+    """Implementation for batched calls: the same rule as ``default_impl``
+    (the kernels take the batch as their leading grid axis)."""
+    return default_impl(coords)
+
+
 def resolve_impl(impl: str, coords: torch.Tensor) -> str:
     """Concrete implementation for ``coords``; raises for a bad request."""
     if impl not in IMPLS:

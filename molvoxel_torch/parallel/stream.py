@@ -19,8 +19,9 @@ of pinned host buffers on a side CUDA stream from a prefetch thread, and each
 chunk rebuilds its one-hot weights, mask and per-type radii on the card,
 transforms, deposits through the kernel and adds its sum to a device
 accumulator.  The loop makes no host sync; the checksum is read once, at the
-end.  Counterpart of ``molvoxel_tpu/parallel/stream.py`` on one device: the
-mesh (data-parallel) route is ROADMAP A.12.
+end.  Counterpart of ``molvoxel_tpu/parallel/stream.py``; given a mesh
+(parallel/mesh.py), ``StreamingVoxelizer`` routes batches through the
+data-parallel ``voxelize_batch_dp`` as the JAX package does.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from ..core.config import GridSpec
 from ..data.pipeline import PaddedBatch, iter_batches
 from ..ops.batch import voxelize_batch, voxelize_batch_sliced
+from .sharded import voxelize_batch_dp
 
 
 @dataclasses.dataclass
@@ -59,11 +61,6 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the mesh (data-parallel) stream is not ported yet: ROADMAP A.12")
-
-
 def _synchronize(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -72,10 +69,14 @@ def _synchronize(dev: torch.device) -> None:
 class StreamingVoxelizer:
     """Voxelize a molecule stream in fixed-shape batches with metrics/resume.
 
-    ``device``: "cuda" (default) or "cpu".  ``mesh`` raises (ROADMAP A.12).
-    ``materialize`` exists only for the JAX package's signature (there it
-    fences XLA's folding of the grid) and is ignored: the kernel always
-    writes every grid."""
+    ``device``: "cuda" (default) or "cpu".  ``mesh`` (``make_mesh``): a
+    batch with shared radii whose size divides by the mesh's data axis goes
+    through ``voxelize_batch_dp`` (every rank streams the same batches and
+    voxelizes its rows; the consumer gets the DTensor), the rest as without
+    one; the transforms are drawn as without a mesh, so the grids are the
+    same.  ``materialize`` exists only for the JAX package's signature
+    (there it fences XLA's folding of the grid) and is ignored: the kernel
+    always writes every grid."""
 
     def __init__(
         self,
@@ -98,7 +99,6 @@ class StreamingVoxelizer:
         slab_depth: int | None = None,
         device="cuda",
     ):
-        _no_mesh(mesh)
         self.spec = spec
         self.batch_size = batch_size
         self.density_type = density_type
@@ -169,7 +169,16 @@ class StreamingVoxelizer:
         with torch.no_grad():
             if self.slab_depth is not None:
                 return voxelize_batch_sliced(*args, slab_depth=self.slab_depth, **kw)
+            if self.mesh is not None and not per_atom and batch.batch_size % self.mesh.size(0) == 0:
+                kw.pop("radii_batched")
+                return voxelize_batch_dp(*args, mesh=self.mesh, **kw)
             return voxelize_batch(*args, **kw)
+
+    def _staging_ring(self):
+        """The pinned ring ``_dispatch`` stages batches through (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return _PinnedRing(2, self.device, torch.cuda.Stream(self.device))
 
     def run(
         self,
@@ -211,8 +220,7 @@ class StreamingVoxelizer:
         stats.skipped = skipped
         t0 = time.time()
         radii_dev = None
-        cuda = self.device.type == "cuda"
-        ring = _PinnedRing(2, self.device, torch.cuda.Stream(self.device)) if cuda else None
+        ring = self._staging_ring()
         pending: tuple[torch.Tensor, PaddedBatch] | None = None
 
         def flush(p):

@@ -1,14 +1,14 @@
-"""Device timing helpers on CUDA events, and a torch.profiler trace.
+"""Device timing helpers on CUDA events, a torch.profiler trace, and the build directory.
 
 ``measure_device_fn`` times a warmed function with CUDA events around it:
 CUDA launches return before the card finishes, so a host clock without a
 synchronize measures only the enqueue.  ``trace`` records a
 ``torch.profiler`` Chrome trace of a block.
 
-The JAX package's ``enable_compilation_cache`` has no counterpart here:
-the CUDA kernels are built once by nvcc into ``build/molvoxel_torch/``
-(ops/_build.py) and the host helper by g++ (native/build.py), and both are
-reused until their source changes.
+``enable_compilation_cache`` is the JAX package's name for where compiled
+code persists.  Here that is the directory the CUDA kernels are built into
+by nvcc (ops/_build.py) and the host parser by g++ (native/build.py); a
+library there is reused until its source or flags change.
 """
 
 from __future__ import annotations
@@ -17,6 +17,19 @@ import contextlib
 import statistics
 from collections.abc import Callable
 from pathlib import Path
+
+
+def enable_compilation_cache(path: str | Path | None = None) -> Path:
+    """Build (and look for) the CUDA kernels and the host parser in
+    ``path``; None points both back at the default, ``build/molvoxel_torch/``
+    beside the package (listed in .gitignore).  Returns the directory.
+    Libraries already loaded in this process stay loaded."""
+    from ..native import build as native_build
+    from ..ops import _build
+
+    target = _build.DEFAULT_BUILD_DIR if path is None else Path(path)
+    _build.BUILD_DIR = native_build.BUILD_DIR = target
+    return target
 
 
 def measure_device_fn(step: Callable, *, iters: int = 33, repeats: int = 3, key=None) -> float:

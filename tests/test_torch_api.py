@@ -237,9 +237,104 @@ def test_gaussian_notrunc_names_its_roadmap_item(rng):
 
 def test_public_exports():
     for name in ("create_voxelizer", "create_random_transform", "Voxelizer", "GridSpec", "VoxelizerConfig",
-                 "Transform", "RandomTransform"):
-        assert hasattr(molvoxel_torch, name)
+                 "Transform", "RandomTransform", "__version__"):
+        assert hasattr(molvoxel_torch, name) and name in molvoxel_torch.__all__
     assert deposit.launches["deposit_fwd"] >= 0
+
+
+# the JAX package's names whose counterpart in the port has another name
+RENAMED = {"notrunc_use_pallas": "notrunc_use_kernel"}
+# the Pallas kernels' module: its counterpart is ops/deposit.py
+PALLAS_ONLY = ("molvoxel_tpu.ops.pallas_deposit",)
+
+
+def _public_surface(package):
+    """{module path below the package: {public class / function name: object}},
+    counting names defined in the package (its own or re-exported)."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    root = importlib.import_module(package)
+    out = {}
+    for name in [package] + [m.name for m in pkgutil.walk_packages(root.__path__, package + ".")]:
+        if name in PALLAS_ONLY or any(part.startswith("_") for part in name.split(".")[1:]):
+            continue
+        mod = importlib.import_module(name)
+        out[name[len(package):]] = {
+            k: v for k, v in vars(mod).items()
+            if not k.startswith("_") and (inspect.isfunction(v) or inspect.isclass(v))
+            and getattr(v, "__module__", "").startswith(package)
+        }
+    return out
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    """Every public module, class and function of molvoxel_tpu has one at
+    the same module path in molvoxel_torch, but for the Pallas kernels'
+    module (ops/pallas_deposit.py, whose counterpart is ops/deposit.py) and
+    the renamed notrunc_use_pallas (notrunc_use_kernel)."""
+    import importlib
+
+    jax_side, port = _public_surface("molvoxel_tpu"), _public_surface("molvoxel_torch")
+    missing = []
+    for path, names in sorted(jax_side.items()):
+        if path not in port:
+            missing.append(f"module molvoxel_torch{path}")
+            continue
+        mod = importlib.import_module("molvoxel_torch" + path)
+        for name, obj in sorted(names.items()):
+            target = RENAMED.get(name, name)
+            home = importlib.import_module(obj.__module__.replace("molvoxel_tpu", "molvoxel_torch", 1))
+            if not (hasattr(mod, target) or (name in RENAMED and hasattr(home, target))):
+                missing.append(f"molvoxel_torch{path}.{target}")
+    assert not missing, missing
+    for path in (".interop", ".data.wrapper", ".data.rdkit_adapter", ".parallel.mesh", ".parallel.sharded",
+                 ".parallel.multihost", ".viz.atom_colors", ".viz.pymol_session"):
+        assert path in port
+
+
+def test_small_surface_counterparts(rng, tmp_path):
+    """__version__, default_backend_impl, default_batch_impl, grid_flat_padding,
+    the voxelizer module's re-exports and voxelize_batch(materialize=)."""
+    import molvoxel_torch.voxelizer as tvox
+    import molvoxel_tpu
+    from molvoxel_torch.api.voxelizer import default_backend_impl
+    from molvoxel_torch.core.config import GridSpec, grid_flat_padding
+    from molvoxel_torch.core.transform import RandomTransform, Transform
+    from molvoxel_torch.ops.batch import voxelize_batch
+    from molvoxel_torch.ops.voxelize import default_batch_impl
+    from molvoxel_tpu.core.config import grid_flat_padding as jax_grid_flat_padding
+
+    assert molvoxel_torch.__version__ == molvoxel_tpu.__version__ == "0.1.0"
+    assert default_backend_impl() == "cuda" and default_backend_impl("cpu") == "dense"
+    assert default_batch_impl(torch.zeros(2, 3)) == "dense"
+    for dim in (1, 16, 48, 50, 64):
+        assert grid_flat_padding(GridSpec(0.5, dim)) == jax_grid_flat_padding(JSpec(0.5, dim))
+    assert grid_flat_padding(GridSpec(0.5, 20), lane=64) == (400, 448)
+    assert tvox.RandomTransform is RandomTransform and tvox.Transform is Transform
+    coords = torch.as_tensor(rng.uniform(-3, 3, size=(2, 10, 3)).astype(np.float32))
+    w = torch.ones(2, 10, 2)
+    plain = voxelize_batch(coords, w, torch.ones(10), None, None, spec=GridSpec(0.5, 12))
+    assert torch.equal(voxelize_batch(coords, w, torch.ones(10), None, None, spec=GridSpec(0.5, 12),
+                                      materialize=True), plain)
+
+
+def test_enable_compilation_cache_moves_the_build_directories(tmp_path):
+    from molvoxel_torch.native import build as native_build
+    from molvoxel_torch.ops import _build
+    from molvoxel_torch.utils import enable_compilation_cache
+
+    default = _build.BUILD_DIR
+    assert default == _build.DEFAULT_BUILD_DIR == native_build.BUILD_DIR
+    assert default.parts[-2:] == ("build", "molvoxel_torch")
+    try:
+        assert enable_compilation_cache(tmp_path / "cache") == tmp_path / "cache"
+        assert _build.library_path("deposit_fwd").parent == tmp_path / "cache"
+        assert native_build.library_path().parent == tmp_path / "cache"
+    finally:
+        assert enable_compilation_cache() == default
+    assert _build.BUILD_DIR == native_build.BUILD_DIR == default
 
 
 def test_import_loads_no_jax_and_no_molvoxel_tpu():
@@ -252,7 +347,10 @@ def test_import_loads_no_jax_and_no_molvoxel_tpu():
         "molvoxel_torch.data.parsers, molvoxel_torch.data.getter, molvoxel_torch.data.pointcloud, "
         "molvoxel_torch.data.gridstore, molvoxel_torch.native, molvoxel_torch.native.fastparse, "
         "molvoxel_torch.native.build, molvoxel_torch.parallel, molvoxel_torch.parallel.stream, "
-        "molvoxel_torch.cli, molvoxel_torch.utils.timing, molvoxel_torch.viz, molvoxel_torch.viz.dx; "
+        "molvoxel_torch.cli, molvoxel_torch.utils.timing, molvoxel_torch.viz, molvoxel_torch.viz.dx, "
+        "molvoxel_torch.viz.atom_colors, molvoxel_torch.viz.pymol_session, molvoxel_torch.data.wrapper, "
+        "molvoxel_torch.data.rdkit_adapter, molvoxel_torch.interop, molvoxel_torch.parallel.mesh, "
+        "molvoxel_torch.parallel.sharded, molvoxel_torch.parallel.multihost, molvoxel_torch.voxelizer; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'molvoxel_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

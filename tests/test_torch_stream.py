@@ -4,10 +4,11 @@
 (no augmentation: the PRNG streams differ by design); checkpoint and
 resume; ``stream_checksum`` (witness and full read, compact and wire,
 per-type radii) equal to the JAX package's at rtol 1e-5, and to the sum of
-the port's own grids; the mesh route raises naming ROADMAP A.12.  Dims 16,
+the port's own grids (the mesh route: tests/test_torch_parallel.py).  Dims 16,
 records synthesized from the golden ligand.  Also the timing helpers.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -43,21 +44,61 @@ def _clouds(rng, n, c=3):
     return out
 
 
+def _inputs_of(batches):
+    """{coords, centers, weights} of a stream's batches, concatenated."""
+    return {k: np.concatenate([np.asarray(getattr(b, k)) for b in batches]) for k in ("coords", "centers", "weights")}
+
+
+def _mismatch_report(got, want, tol, got_batches, want_batches, shown=12):
+    """Where two packages' grids differ beyond ``tol``: the molecules, the
+    worst voxels (molecule, channel, d, h, w: port / JAX) and, for each
+    molecule, whether the two packages' inputs (coords, centers, weights)
+    agree, with those inputs."""
+    bad = np.argwhere(np.abs(got - want) > tol)
+    mols = sorted(set(bad[:, 0].tolist()))
+    worst = bad[np.argsort(-np.abs(got - want)[tuple(bad.T)])[:shown]]
+    lines = [f"{len(bad)} voxels beyond {tol:g} in molecules {mols}"]
+    lines += [f"  voxel {tuple(v)}: port {got[tuple(v)]!r} jax {want[tuple(v)]!r}" for v in worst.tolist()]
+    mine, theirs = _inputs_of(got_batches), _inputs_of(want_batches)
+    for m in mols:
+        same = {k: bool(np.array_equal(mine[k][m], theirs[k][m])) for k in mine}
+        lines.append(f"  molecule {m}: inputs equal {same}")
+        lines += [f"    {k}: port {mine[k][m].tolist()} jax {theirs[k][m].tolist()}" for k in mine]
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_run_batches_equal_jax(out_dtype, library):
-    """Grids of the feeder stream: 1e-5 (f32) or 2^-7 x max (bf16)."""
-    got, want, natoms = [], [], []
+    """Grids of the feeder stream: 1e-5 (f32) or 2^-7 x max (bf16).  On a
+    failure the report names the molecules, the voxels and both packages'
+    inputs."""
+    got, want, got_batches, want_batches = [], [], [], []
     sv = StreamingVoxelizer(SPEC, out_dtype=out_dtype, device="cpu")
     stats = sv.run_batches(SDFBatchFeeder(library, SYMBOLS, batch_size=8),
-                           lambda im, b: (got.append(im.float()), natoms.append(b.num_atoms)))
+                           lambda im, b: (got.append(im.float()), got_batches.append(b)))
     JStreamingVoxelizer(JSPEC, out_dtype=out_dtype).run_batches(
-        JFeeder(library, SYMBOLS, batch_size=8), lambda im, b: want.append(np.asarray(im, np.float32)))
+        JFeeder(library, SYMBOLS, batch_size=8),
+        lambda im, b: (want.append(np.asarray(im, np.float32)), want_batches.append(b)))
     got, want = torch.cat(got).numpy(), np.concatenate(want)
     assert got.shape == want.shape == (24, 4, 16, 16, 16)
     assert stats.molecules == 22 and stats.batches == 3
     tol = 1e-5 if out_dtype == "float32" else 2**-7 * max(float(np.abs(want).max()), 1.0)
-    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    if not np.all(np.abs(got - want) <= tol):
+        pytest.fail(_mismatch_report(got, want, tol, got_batches, want_batches))
     assert (got[2] == 0).all() and (got[9] == 0).all()  # the all-H and the empty record
+
+
+def test_mismatch_report_names_molecules_voxels_and_inputs(library):
+    """The report test_run_batches_equal_jax gives on a failure."""
+    batches = list(SDFBatchFeeder(library, SYMBOLS, batch_size=8))
+    want = np.zeros((24, 4, 2, 2, 2), np.float32)
+    got = want.copy()
+    got[5, 1, 0, 1, 1] = 3e-5
+    other = [dataclasses.replace(b, coords=b.coords + (i == 0)) for i, b in enumerate(batches)]
+    report = _mismatch_report(got, want, 1e-5, batches, other)
+    assert "1 voxels beyond 1e-05 in molecules [5]" in report
+    assert "voxel (5, 1, 0, 1, 1): port" in report
+    assert "molecule 5: inputs equal {'coords': False, 'centers': True, 'weights': True}" in report
 
 
 def test_run_from_clouds_equal_jax(rng):
@@ -164,8 +205,8 @@ def test_stream_rejects_what_it_cannot_run(library):
     compact = list(SDFBatchFeeder(library, SYMBOLS, batch_size=8, compact=True))
     with pytest.raises(ValueError, match="multiple of chunk"):
         stream_checksum(iter(compact), SPEC, chunk=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        StreamingVoxelizer(SPEC, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="slab_depth"):  # the mesh route runs: tests/test_torch_parallel.py
+        StreamingVoxelizer(SPEC, device="cpu", slab_depth=5).run_batches(iter(batches))
 
 
 def test_cuda_is_the_default_device(monkeypatch):

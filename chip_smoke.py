@@ -38,7 +38,9 @@ exit code:
    - row 1 (whole-row grids): ``forward_batch`` on 64 ligands of 61 atoms,
      each with its own random rotation and 0.5 A translation, into a 64^3 x 4
      gaussian grid in bfloat16; the 3262-atom protein at 48^3 and 128^3, f32
-     (and gaussian_notrunc at 128^3, which routes to the kernel);
+     (and gaussian_notrunc at 128^3 against the dense path at 1e-5, on the
+     route ``notrunc_use_kernel`` names: one launch on the kernel, none on
+     the separable product);
    - row 2 (gaussian, ragged or 256^3): the ligand at dims 20 and 40 and at 256^3;
    - row 3 (binary, ragged or 256^3): the ligand at dim 40 and at 256^3;
    - row 4 (backward): the training step, the headline batch through
@@ -56,6 +58,28 @@ exit code:
    SM x SMs)) and write rate (grid bytes / kernel time).  The headline
    ``forward_batch`` call and the training step are also timed on the host
    clock (median, minimum and maximum of 7).
+   notrunc_routing (after the main paths): gaussian_notrunc's two CUDA
+   routes from the same inputs (golden molecules padded as the entry points
+   pad them, radii 1.0, sigma 0.5): the kernel route
+   (``voxelize_deposit_batch``: padding, Morton sort, threshold row, plane
+   ranges, launch) and the separable product (``voxelize_separable_batch``),
+   each timed end to end by CUDA-graph replay (the lower of two medians of
+   7, in turns), the kernel launch alone and its plain version.  Shapes
+   (NOTRUNC_CASES): the 61-atom ligand in a batch of 64 at 64^3 x 4 (f32,
+   bf16), alone at 48^3 and 128^3, 4 of them in the 64-plane slab 128..191
+   of 256^3 at res 0.25; the 468-atom golden complex at 48^3 x 8; the
+   protein's first 1,024 atoms at 48^3 and 128^3; the 3262-atom protein at
+   48^3, 128^3, 256^3 (f32) and 128^3 (bf16).  The grids agree at 2e-5
+   (f32) or 2^-7 max (bf16); each line has both times, the kernel's bound,
+   the pairs inside the threshold sphere, the separable product's FLOPs,
+   bytes and bound, and the route the port takes.  Then one forward and one
+   backward through each route (NOTRUNC_TRAIN_CASES: the headline batch as
+   ``VoxelizeLayer`` takes it, the protein at 48^3 through
+   ``ops.voxelize.voxelize`` with radii gradients), gradients within 5e-3 x
+   max(1, scale), the backward launch alone, its plain version and its
+   bound; the entry point itself must take the port's route.  The phase
+   fails if the port's route is more than 10% slower than the other
+   anywhere.
 6. convergence: examples/pose_optimize.py through the kernel backward, the
    61-atom golden ligand at 32^3, sigma 1.0, 400 Adam steps at 3e-2 on
    (quaternion, shift) from a hidden pose drawn from a numpy seed; it must
@@ -68,7 +92,9 @@ exit code:
    (``_packed_batch``) and unpacked, through the CUDA deposit and through
    the separable product (gaussian_notrunc), at Vp 32 and 64 and C 1 and 4:
    equal at 1e-5 (f32), both timed by CUDA-graph replay in turns; the route
-   ``voxelize_batch`` takes (unpacked, on both paths).
+   ``voxelize_batch`` takes on both: unpacked, or for gaussian_notrunc where
+   ``notrunc_use_kernel`` names the kernel, one launch and the separable
+   product's grid at 2e-5.
 8. library_store: a library of LIBRARY_RECORDS records synthesized from the
    golden ligand (``write_library``, one all-hydrogen and one empty record
    among them); the CLI writes its first 512 records to a bf16 grid store
@@ -115,7 +141,11 @@ exit code:
    depth slab of the rotated ligand at 256^3 over a (1, 2) mesh, the two
    seeded apart, assembled against one full-depth call at 1e-5.
 14. kernels: one line {"kernels": [...]} with each kernel's launches (the
-   main paths' and, by phase, phases 10-13's), error, times and bound.
+   main paths' and, by phase, notrunc_routing's and phases 10-13's), error,
+   times and bound; rows 1, 2 and 4 carry a "notrunc" entry: a timed
+   notrunc_routing case with the kernel launch's ms, its plain version's ms
+   and its bound, the kernel route's ms, and the separable product's ms as
+   its library_ms.
 Then the nvidia-smi line again, and last {"ok": true, "device": {...}}.
 
 Needs one CUDA card; imports nothing of JAX.
@@ -142,6 +172,7 @@ REPLACES = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 DEVICE = "cuda"
 
 
@@ -524,20 +555,39 @@ def phase_packing(lig_xyz, rng):
     package packs: the CUDA deposit (packed as ``_choose_pack`` says) and
     the separable product of gaussian_notrunc (as ``_choose_pack_separable``
     says).  Grids equal at 1e-5 (f32), both timed by CUDA-graph replay in
-    turns (unpacked, packed, packed, unpacked); and the route
-    ``voxelize_batch`` takes (unpacked: its grid is the unpacked one, bit
-    for bit)."""
+    turns (unpacked, packed, packed, unpacked); and the route that
+    ``voxelize_batch`` takes on the card: unpacked (its grid is the
+    unpacked one, bit for bit, with one kernel launch on the kernel path
+    and none on the separable one), or, where ``notrunc_use_kernel`` sends
+    a gaussian_notrunc shape to the kernel, one kernel launch and a grid
+    within 2e-5 of the separable product's."""
     import numpy as np
     import torch
 
     from molvoxel_torch.core.config import GridSpec
-    from molvoxel_torch.ops import batch
+    from molvoxel_torch.ops import batch, deposit
     from molvoxel_torch.ops.deposit import voxelize_deposit_batch
     from molvoxel_torch.ops.separable import voxelize_separable_batch
+    from molvoxel_torch.ops.voxelize import notrunc_use_kernel
 
     spec = GridSpec(0.5, 64)
     dev = lig_xyz.device
-    paths = {  # path: (unpacked op, pack table, density that voxelize_batch routes there)
+
+    def batch_route(density, crd, ww, r, mask, unpacked):
+        """The route voxelize_batch takes: "unpacked", "kernel" (the rule's
+        kernel route for notrunc) or "other"."""
+        vp, c = ww.shape[1:]
+        kernel = density == "gaussian" or notrunc_use_kernel(vp, spec.dimension, channels=c, batch=ww.shape[0])
+        deposit.reset_launches()
+        got = batch.voxelize_batch(crd, ww, r, mask, None, spec=spec, density_type=density)
+        torch.cuda.synchronize()
+        if deposit.launches["deposit_fwd"] != int(kernel):
+            return "other"
+        if density == "gaussian_notrunc" and kernel:
+            return "kernel" if float((got - unpacked).abs().max()) <= 2e-5 else "other"
+        return "unpacked" if torch.equal(got, unpacked) else "other"
+
+    paths = {  # path: (unpacked op, pack table, density that voxelize_batch takes there)
         "kernel": (lambda crd, ww, r, mask=None: voxelize_deposit_batch(crd, ww, r, spec=spec, mask=mask),
                    batch._choose_pack, "gaussian"),
         "separable": (lambda crd, ww, r, mask=None: voxelize_separable_batch(crd, ww, r, spec=spec, mask=mask),
@@ -566,23 +616,311 @@ def phase_packing(lig_xyz, rng):
                     grids[packed] = runs[packed]()
                     ms[packed].append(time_graph_ms(runs[packed]))
                 err = float((grids[True] - grids[False]).abs().max())
-                routed = batch.voxelize_batch(coords, w, radii, mask, None, spec=spec, density_type=density)
-                unpacked_route = torch.equal(routed, grids[False])
+                route = batch_route(density, coords, w, radii, mask, grids[False])
                 line = {"phase": "packing", "path": path, "case": f"64mol_vp{vp}_c{c}_dim64_f32", "pack": pack,
                         "packed_ms": statistics.mean(ms[True]), "unpacked_ms": statistics.mean(ms[False]),
                         "packed_over_unpacked": statistics.mean(ms[True]) / statistics.mean(ms[False]),
-                        "max_abs_err": err, "tol": 1e-5, "route": "unpacked" if unpacked_route else "other",
-                        "ok": err <= 1e-5 and unpacked_route}
+                        "max_abs_err": err, "tol": 1e-5, "route": route, "ok": err <= 1e-5 and route != "other"}
                 emit(line)
                 lines.append(line)
-                del grids, routed
+                del grids
     for path in paths:
         mine = [ln for ln in lines if ln["path"] == path]
-        emit({"phase": "packing_route", "path": path, "route": "unpacked",
+        emit({"phase": "packing_route", "path": path, "routes": sorted({ln["route"] for ln in mine}),
               "shapes_where_packing_is_faster": sum(ln["packed_ms"] < ln["unpacked_ms"] for ln in mine),
               "shapes": len(mine)})
     if not all(ln["ok"] for ln in lines):
-        raise SystemExit("packing failed: packed and unpacked grids differ, or voxelize_batch packed")
+        raise SystemExit("packing failed: packed and unpacked grids differ, or voxelize_batch took another route")
+
+
+def separable_work(b: int, vp: int, c: int, dl: int, dim: int, out_dtype="float32") -> tuple[int, int, int]:
+    """(bmm FLOPs, other FLOPs, bytes) of ``voxelize_separable_batch`` as
+    written, from shapes alone: the bmm is 2 B (C Dl) Vp HW; the three axis
+    factors take 4 operations an entry (the exp counted as one), and the
+    eyz and U products one; bytes are each f32 temporary (factors, eyz, U
+    and, in the bf16 and fp8 lanes, their bf16 copies) written once and read
+    once, plus the grid written once."""
+    import torch
+
+    from molvoxel_torch.ops.deposit import out_torch_dtype
+
+    odt = out_torch_dtype(out_dtype)
+    hw = dim * dim
+    bmm = 2 * b * c * dl * vp * hw
+    other = 4 * b * vp * (dl + 2 * dim) + b * vp * hw + b * vp * c * dl
+    temps = b * vp * (dl + 2 * dim + hw + c * dl) * 4
+    if odt != torch.float32:
+        temps += b * vp * (hw + c * dl) * 2
+    return bmm, other, 2 * temps + b * c * dl * hw * odt.itemsize
+
+
+# gaussian_notrunc: the shapes at which notrunc_routing times the kernel
+# route against the separable product.
+NOTRUNC_CASES = (
+    # name, molecule, batch, dim, res, depth slab (d_offset, planes) or None, out dtype
+    ("lig61_b64_dim64_c4_f32", "lig", 64, 64, 0.5, None, "float32"),
+    ("lig61_b64_dim64_c4_bf16", "lig", 64, 64, 0.5, None, "bfloat16"),
+    ("lig61_b1_dim48_c4_f32", "lig", 1, 48, 0.5, None, "float32"),
+    ("lig61_b1_dim128_c4_f32", "lig", 1, 128, 0.5, None, "float32"),
+    ("lig61_b4_dim256_res025_slab128_64_c4_f32", "lig", 4, 256, 0.25, (128, 64), "float32"),
+    ("complex468_b1_dim48_c8_f32", "complex", 1, 48, 0.5, None, "float32"),
+    ("prot1024_b1_dim48_c1_f32", "prot1024", 1, 48, 0.5, None, "float32"),
+    ("prot1024_b1_dim128_c1_f32", "prot1024", 1, 128, 0.5, None, "float32"),
+    ("prot3262_b1_dim48_c1_f32", "prot", 1, 48, 0.5, None, "float32"),
+    ("prot3262_b1_dim128_c1_f32", "prot", 1, 128, 0.5, None, "float32"),
+    ("prot3262_b1_dim256_c1_f32", "prot", 1, 256, 0.5, None, "float32"),
+    ("prot3262_b1_dim128_c1_bf16", "prot", 1, 128, 0.5, None, "bfloat16"),
+)
+NOTRUNC_TRAIN_CASES = (
+    # name, molecule, batch, dim, entry point
+    ("train_layer_lig61_b64_dim64_c4_f32", "lig", 64, 64, "VoxelizeLayer"),
+    ("train_voxelize_prot3262_dim48_c1_f32", "prot", 1, 48, "voxelize"),
+)
+
+
+def notrunc_molecules(prot_atoms=(1024,)):
+    """name -> (coords (V, 3) about the golden center, weights (V, C)), numpy
+    float32: "lig", the 61-atom ligand of lig_types_gaussian with its four
+    types one-hot; "complex", the 61 ligand and 407 pocket atoms of
+    pocket_types_gaussian with their eight types one-hot; "prot", the
+    3262-atom protein of protein_single_gaussian (C = 1); and "protN", its
+    first N atoms for each N of ``prot_atoms``."""
+    import numpy as np
+
+    mols = {}
+    for name, stem in (("lig", "lig_types_gaussian"), ("complex", "pocket_types_gaussian")):
+        g = load_golden(stem)
+        types = g["channels"].astype(np.int64)
+        mols[name] = ((g["coords"] - g["center"]).astype(np.float32),
+                      np.eye(int(types.max()) + 1, dtype=np.float32)[types])
+    g = load_golden("protein_single_gaussian")
+    xyz = (g["coords"] - g["center"]).astype(np.float32)
+    mols["prot"] = (xyz, np.ones((len(xyz), 1), np.float32))
+    for n in prot_atoms:
+        mols[f"prot{n}"] = (xyz[:n], np.ones((n, 1), np.float32))
+    return mols
+
+
+def notrunc_inputs(mol, b: int, dev):
+    """A batch as the entry points hand it to the deposit: the atoms padded
+    to ``small_atom_bucket`` with zero coordinates and a mask; for b > 1
+    each molecule gets its own random rotation and 0.5 A translation (from
+    a generator seeded with b).  Returns (coords, weights, mask) on ``dev``."""
+    import torch
+
+    from molvoxel_torch.core.config import small_atom_bucket
+    from molvoxel_torch.ops.batch import random_transform_batch
+
+    xyz, w = mol
+    v = len(xyz)
+    vp = small_atom_bucket(v)
+    coords = torch.zeros((b, vp, 3), device=dev)
+    coords[:, :v] = torch.as_tensor(xyz, device=dev)
+    if b > 1:
+        coords = random_transform_batch(torch.Generator().manual_seed(b), coords, 0.5, True)
+    weights = torch.zeros((b, vp, w.shape[1]), device=dev)
+    weights[:, :v] = torch.as_tensor(w, device=dev)
+    mask = torch.zeros((b, vp), dtype=torch.bool, device=dev)
+    mask[:, :v] = True
+    return coords.contiguous(), weights, mask
+
+
+def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, dev) -> dict:
+    """One notrunc_routing line: the kernel route (``voxelize_deposit_batch``
+    with the threshold row: padding, Morton sort, plane ranges and the
+    launch) and the separable route (``voxelize_separable_batch``) on the
+    same inputs, each timed end to end by CUDA-graph replay (the lower of
+    two medians of 7, taken in turns: kernel, separable, separable, kernel),
+    and the kernel launch alone on the route's own prepared inputs (and its
+    plain version, ``deposit_plain``, on the same inputs); the two grids held
+    against each other (f32 2e-5, bf16 2^-7 max); the kernel's bound,
+    the pairs inside the threshold sphere, the separable product's FLOPs and
+    bytes (``separable_work``) and its bound (the bmm at the f32 rate, or
+    the bf16 tensor-core rate in the bf16 lane); which route is faster and
+    which one the port takes (``notrunc_use_kernel``)."""
+    import torch
+
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.ops import deposit, separable
+    from molvoxel_torch.ops.batch import pick_slab_depth
+    from molvoxel_torch.ops.voxelize import notrunc_use_kernel
+
+    spec = GridSpec(res, dim)
+    odt = getattr(torch, out_dtype)
+    coords, w, mask = notrunc_inputs(mol, b, dev)
+    _, vp, c = w.shape
+    d0, d_count = (0, None) if slab is None else slab
+    dl = dim if d_count is None else d_count
+    radii = torch.ones(vp, device=dev)
+    kw = dict(spec=spec, sigma=0.5, mask=mask, d_offset=d0, d_count=d_count, out_dtype=odt)
+    routes = {"kernel": lambda: deposit.voxelize_deposit_batch(coords, w, radii, density_type="gaussian_notrunc",
+                                                               **kw),
+              "separable": lambda: separable.voxelize_separable_batch(coords, w, radii, **kw)}
+    deposit.reset_launches()
+    got = routes["kernel"]()
+    torch.cuda.synchronize()
+    launches = deposit.launches["deposit_fwd"]
+    ref = routes["separable"]().float()
+    err = float((got.float() - ref).abs().max())
+    tol = 2e-5 if odt == torch.float32 else 2**-7 * max(float(ref.abs().max()), 1.0)
+    finite = bool(torch.isfinite(got.float()).all() and torch.isfinite(ref).all())
+    del got, ref
+    ms = {route: [] for route in routes}
+    for route in ("kernel", "separable", "separable", "kernel"):
+        ms[route].append(time_graph_ms(routes[route]))
+    ms = {route: min(t) for route, t in ms.items()}
+    rows, wt, ranges, kdl, gaussian = deposit.prepare_batch(coords, w, radii, spec=spec,
+                                                            density_type="gaussian_notrunc", sigma=0.5, mask=mask,
+                                                            d_offset=d0, d_count=d_count)
+    launch_ms = time_graph_ms(lambda: deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=kdl, gaussian=gaussian,
+                                                          out_dtype=odt))
+    plain_ms = time_ms(lambda: deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=kdl, gaussian=gaussian,
+                                                     out_dtype=odt), reps=3, inner=1)
+    out = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=kdl, gaussian=gaussian, out_dtype=odt)
+    b_ms, b_by = bound(rows, wt, ranges, out, spec, kdl, gaussian)
+    pairs = cutoff_pairs(rows, wt.abs().amax(dim=1) > 0, spec, kdl)[0]
+    del out, rows, wt, ranges
+    bmm, other_ops, n_bytes = separable_work(b, vp, c, dl, dim, odt)
+    bmm_rate = FP32_OPS_PER_S if odt == torch.float32 else BF16_TC_OPS_PER_S
+    sep_bound = max((bmm / bmm_rate + other_ops / FP32_OPS_PER_S) * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3)
+    port = "kernel" if notrunc_use_kernel(vp, dim, d_count, channels=c, batch=b, out_dtype=out_dtype) else "separable"
+    other = "separable" if port == "kernel" else "kernel"
+    line = {"phase": "notrunc_routing", "case": name, "row": 2 if pick_slab_depth(spec) else 1, "batch": b,
+            "atoms": int(mask[0].sum()), "padded_atoms": vp,
+            "channels": c, "dim": dim, "planes": dl, "res": res, "out_dtype": out_dtype,
+            "kernel_route_ms": ms["kernel"], "kernel_launch_ms": launch_ms, "kernel_plain_ms": plain_ms,
+            "separable_ms": ms["separable"],
+            "kernel_bound_ms": b_ms, "kernel_bound_by": b_by, "threshold_pairs": pairs,
+            "separable_flops": bmm + other_ops, "separable_bytes": n_bytes, "separable_bound_ms": sep_bound,
+            "faster": min(ms, key=ms.get), "port_route": port, "port_over_other": ms[port] / ms[other],
+            "launches": launches, "max_abs_diff": err, "tol": tol}
+    line["ok"] = bool(finite and err <= tol and launches == 1 and ms[port] <= 1.1 * ms[other])
+    torch.cuda.empty_cache()
+    return line
+
+
+def notrunc_train_case(name, mol, b: int, dim: int, entry: str, dev) -> dict:
+    """One notrunc_routing training line: one forward and one backward
+    (``torch.autograd.grad`` at a fixed random cotangent) through each
+    route, timed as ``notrunc_case`` times the forward, gradients held
+    against each other at 5e-3 x max(1, gradient scale); the backward launch
+    alone and its plain version on the kernel route's prepared inputs; then
+    the entry point (``VoxelizeLayer`` on the batch, or
+    ``ops.voxelize.voxelize`` on one molecule, both with gradients on) once,
+    which must take the route ``notrunc_use_kernel`` names and give that
+    route's gradients.  The layer's radii are its own constant 1.0;
+    ``voxelize`` also differentiates the per-atom radii."""
+    import torch
+
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.nn import VoxelizeLayer
+    from molvoxel_torch.ops import deposit, separable
+    from molvoxel_torch.ops.voxelize import notrunc_use_kernel, voxelize
+
+    spec = GridSpec(0.5, dim)
+    coords, w, mask = notrunc_inputs(mol, b, dev)
+    _, vp, c = w.shape
+    ct = torch.randn((b, c, dim, dim, dim), generator=torch.Generator(device=dev).manual_seed(b), device=dev)
+    if entry == "VoxelizeLayer":
+        radii = torch.ones(vp, device=dev)
+        leaves = [coords.clone().requires_grad_(), w.clone().requires_grad_()]
+        kw = dict(spec=spec, sigma=0.5, mask=mask)
+        fns = {"kernel": lambda x, ww: deposit.voxelize_deposit_batch(x, ww, radii, density_type="gaussian_notrunc",
+                                                                      **kw),
+               "separable": lambda x, ww: separable.voxelize_separable_batch(x, ww, radii, **kw)}
+        layer = VoxelizeLayer(spec, density_type="gaussian_notrunc")
+
+        def entry_fn(x, ww):
+            return layer(x, ww, mask)
+    else:
+        leaves = [coords[0].clone().requires_grad_(), w[0].clone().requires_grad_(),
+                  torch.ones(vp, device=dev, requires_grad=True)]
+        ct = ct[0]
+        kw = dict(spec=spec, sigma=0.5, mask=mask[0])
+        fns = {"kernel": lambda x, ww, r: deposit.voxelize_deposit(x, ww, r, density_type="gaussian_notrunc", **kw),
+               "separable": lambda x, ww, r: separable.voxelize_separable(x, ww, r, **kw)}
+
+        def entry_fn(x, ww, r):
+            return voxelize(x, ww, r, density_type="gaussian_notrunc", **kw)
+
+    def step(fn):
+        return torch.autograd.grad(fn(*leaves), leaves, grad_outputs=ct)
+
+    grads = {route: step(fn) for route, fn in fns.items()}
+    err, scale = grad_err(grads["kernel"], grads["separable"])
+    ms = {route: [] for route in fns}
+    for route in ("kernel", "separable", "separable", "kernel"):
+        ms[route].append(time_graph_ms(lambda: step(fns[route])))
+    ms = {route: min(t) for route, t in ms.items()}
+    port = "kernel" if notrunc_use_kernel(vp, dim, None, channels=c, batch=b, grad=True) else "separable"
+    # the backward launch alone on the kernel route's prepared inputs, and its bound
+    rows, wt, _, kdl, gaussian = deposit.prepare_batch(coords, w, torch.ones(vp, device=dev), spec=spec,
+                                                       density_type="gaussian_notrunc", sigma=0.5, mask=mask)
+    ct_k = ct.reshape(b, c, dim, dim * dim)
+    bwd_ms = time_graph_ms(lambda: deposit.deposit_bwd(rows, wt, ct_k, spec=spec, dl=kdl, gaussian=gaussian))
+    bwd_plain_ms = time_ms(lambda: deposit.deposit_bwd_plain(rows, wt, ct_k, spec=spec, dl=kdl, gaussian=gaussian),
+                           reps=3, inner=1)
+    bwd_bound, bwd_by = bound_bwd(rows, wt, ct_k, wt.abs().amax(dim=1) > 0, spec, kdl, gaussian)
+    del rows, wt
+    other = "separable" if port == "kernel" else "kernel"
+    deposit.reset_launches()
+    got = step(entry_fn)
+    torch.cuda.synchronize()
+    launches = dict(deposit.launches)
+    taken = "kernel" if launches["deposit_fwd"] == 1 and launches["deposit_bwd"] == 1 else (
+        "separable" if launches == {"deposit_fwd": 0, "deposit_bwd": 0} else "other")
+    entry_err = grad_err(got, grads[port])[0]
+    line = {"phase": "notrunc_routing", "case": name, "entry": entry, "batch": b, "atoms": int(mask[0].sum()),
+            "padded_atoms": vp, "channels": c, "dim": dim, "out_dtype": "float32",
+            "kernel_fwd_bwd_ms": ms["kernel"], "separable_fwd_bwd_ms": ms["separable"],
+            "kernel_bwd_launch_ms": bwd_ms, "kernel_bwd_plain_ms": bwd_plain_ms, "kernel_bwd_bound_ms": bwd_bound,
+            "kernel_bwd_bound_by": bwd_by,
+            "faster": min(ms, key=ms.get), "port_route": port, "port_over_other": ms[port] / ms[other],
+            "entry_route": taken, "entry_launches": launches, "grad_scale": scale, "max_abs_diff": err,
+            "tol": 5e-3 * scale, "entry_vs_route_err": entry_err}
+    line["ok"] = bool(err <= 5e-3 * scale and taken == port and entry_err <= 5e-3 * scale
+                      and ms[port] <= 1.1 * ms[other] and all(torch.isfinite(g).all() for g in got))
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_notrunc_routing(dev) -> dict:
+    """notrunc_routing: every case of NOTRUNC_CASES and NOTRUNC_TRAIN_CASES;
+    fails the run if the routes disagree or the port's route is more than
+    10% slower than the other one anywhere.  Returns the kernels-line fields:
+    by table row, the launches of the phase's driven calls (each route run
+    once before it is timed) and one timed case."""
+    from molvoxel_torch.ops import deposit
+
+    t_start = time.perf_counter()
+    mols = notrunc_molecules()
+    lines = {}
+    for name, mol, b, dim, res, slab, odt in NOTRUNC_CASES:
+        lines[name] = notrunc_case(name, mols[mol], b, dim, res, slab, odt, dev)
+        emit(lines[name])
+    launches = {row: sum(ln["launches"] for ln in lines.values() if ln["row"] == row) for row in (1, 2)}
+    launches[4] = 0
+    for name, mol, b, dim, entry in NOTRUNC_TRAIN_CASES:
+        lines[name] = notrunc_train_case(name, mols[mol], b, dim, entry, dev)
+        emit(lines[name])
+        launches[1] += lines[name]["entry_launches"]["deposit_fwd"]
+        launches[4] += lines[name]["entry_launches"]["deposit_bwd"]
+    deposit.reset_launches()
+    emit({"phase": "notrunc_routing_seconds", "total_s": time.perf_counter() - t_start})
+    failed = [name for name, ln in lines.items() if not ln["ok"]]
+    if failed:
+        raise SystemExit(f"notrunc_routing failed: {failed}")
+
+    def entry(row, case, prefix, route_key, lib_key):
+        ln = lines[case]
+        return {"timed_case": case, "launches": launches[row], "kernel_ms": ln[f"kernel_{prefix}launch_ms"],
+                "plain_ms": ln[f"kernel_{prefix}plain_ms"], "route_ms": ln[route_key], "library_ms": ln[lib_key],
+                "bound_ms": ln[f"kernel_{prefix}bound_ms"], "bound_by": ln[f"kernel_{prefix}bound_by"],
+                "port_route": ln["port_route"]}
+
+    return {1: entry(1, "lig61_b64_dim64_c4_bf16", "", "kernel_route_ms", "separable_ms"),
+            2: entry(2, "lig61_b4_dim256_res025_slab128_64_c4_f32", "", "kernel_route_ms", "separable_ms"),
+            4: entry(4, "train_layer_lig61_b64_dim64_c4_f32", "bwd_", "kernel_fwd_bwd_ms", "separable_fwd_bwd_ms")}
 
 
 def phase_library(tmp: Path, dev):
@@ -1224,7 +1562,7 @@ def main() -> int:
     from molvoxel_torch.ops import _build, autodiff, deposit
     from molvoxel_torch.ops.batch import random_transform_batch, voxelize_batch
     from molvoxel_torch.ops.dense import voxelize_dense
-    from molvoxel_torch.ops.voxelize import voxelize
+    from molvoxel_torch.ops.voxelize import notrunc_use_kernel, voxelize
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1552,8 +1890,10 @@ def main() -> int:
                                                                torch.ones(vp, device=dev), spec=spec, mask=p_mask)
         row1.append(check_and_time(1, f"forward_single_protein_dim{dim}_f32", out, ref, rows, wt, ranges, spec, dl,
                                    gaussian, torch.float32, launches))
-    # gaussian_notrunc on the protein at 128^3: the routing rule sends it to
-    # the kernel with the notrunc threshold row
+    # gaussian_notrunc on the protein at 128^3, on the route the routing rule
+    # names: one launch (the kernel with the notrunc threshold row) or none
+    # (the separable product)
+    nt_route = "kernel" if notrunc_use_kernel(small_atom_bucket(prot_xyz.shape[0]), 128) else "separable"
     vox = create_voxelizer(device=DEVICE, resolution=0.5, dimension=128, density_type="gaussian_notrunc")
     deposit.reset_launches()
     out = vox.forward_single(prot_np, prot["center"], 1.0)
@@ -1563,8 +1903,8 @@ def main() -> int:
                     torch.ones(prot_xyz.shape[0], device=dev), GridSpec(0.5, 128), "gaussian_notrunc")[0]
     err = float((out - ref).abs().max())
     emit({"phase": "main_path_check", "row": 1, "case": "forward_single_protein_dim128_notrunc_f32",
-          "launches": nt_launches, "max_abs_err_vs_dense": err, "tol": 1e-5})
-    if err > 1e-5 or nt_launches != 1:
+          "route": nt_route, "launches": nt_launches, "max_abs_err_vs_dense": err, "tol": 1e-5})
+    if err > 1e-5 or nt_launches != (1 if nt_route == "kernel" else 0):
         raise SystemExit("main path protein notrunc failed")
     # row 1 is timed on the headline batch; its launches count all four calls
     kernels[1] = dict(row1[0], launches=sum(ln["launches"] for ln in row1) + nt_launches,
@@ -1676,6 +2016,9 @@ def main() -> int:
         raise SystemExit("main path training step: backward kernel disagrees with its plain version")
     kernels[4] = dict(line, max_abs_err=max([kerr] + bwd_errs))
 
+    # 5b. gaussian_notrunc: the kernel route against the separable product
+    notrunc = phase_notrunc_routing(dev)
+
     # 6. convergence: examples/pose_optimize.py through the kernel backward
     coords0 = torch.as_tensor((lig["coords"] - lig["coords"].mean(0)).astype(np.float32), device=dev)
     spec32 = GridSpec(0.5, 32)
@@ -1731,7 +2074,9 @@ def main() -> int:
     try:
         sliced = phase_sliced_256(lig_xyz, tmp, rng)
         phase_packing(lig_xyz, rng)
-        by_phase = {row: {} for row in (1, 2, 3)}
+        by_phase = {row: {} for row in (1, 2, 3, 4)}
+        for row, entry in notrunc.items():
+            by_phase[row]["notrunc_routing"] = entry["launches"]
         by_phase[1]["wrappers"] = phase_wrappers(tmp)
         stream = phase_library(tmp, dev)
         by_phase[1]["interop_dataset"] = phase_interop(tmp / "lib.sdf", tmp / "store", dev)
@@ -1756,7 +2101,8 @@ def main() -> int:
          "ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": None, "timed_case": k["case"],
          **{key: k[key] for key in ("launches_by_phase", "launches_per_superbatch", "launches_per_sliced_call")
-            if key in k}}
+            if key in k},
+         **({"notrunc": notrunc[row]} if row in notrunc else {})}
         for row, k in sorted(kernels.items())
     ]})
     print(smi, flush=True)

@@ -50,8 +50,11 @@ def _generator(key) -> torch.Generator:
 
 
 class Voxelizer:
-    """Voxelizer on the CUDA deposit kernel (CPU: the plain dense path;
-    gaussian_notrunc: the separable product, see ops/voxelize.py)."""
+    """Voxelizer on the CUDA deposit kernel (CPU: the plain dense path).
+    gaussian_notrunc runs on the CPU as the separable product, and on the
+    card on the kernel (its threshold row) or the separable product, by
+    the separable product's FLOPs against thresholds measured on an H100
+    (ops/voxelize.notrunc_use_kernel)."""
 
     LIB = "PyTorch"
     RADII_TYPE_LIST = list(RADII_TYPE_LIST)

@@ -37,12 +37,14 @@ from .deposit import (
 from .dense import voxelize_dense, voxelize_dense_channelwise
 from .separable import voxelize_separable_batch, voxelize_separable_batch_channelwise
 from .voxelize import default_batch_impl, notrunc_separable, resolve_impl  # noqa: F401  (the JAX package's name)
+from .voxelize import needs_grad
 
 # The TPU kernel's output-tile budget, copied from the JAX package
 # (_OUT_BUDGET, molvoxel_tpu/ops/pallas_deposit.py:63) with its whole-row
 # tile rule (_row_tile, :380) for pick_slab_depth.  They are the TPU's VMEM
-# sizes, kept so that both packages cut the same slabs; they are not
-# re-derived on the H100 (ROADMAP).
+# sizes, kept so that both packages cut the same slabs: on an H100 the slab
+# size does not matter to the sliced call, whose 4 launches of about 0.09 ms
+# stand against 70-100 ms of host copies at 256^3 (PERF.md).
 _OUT_BUDGET = 5 * 2**20
 
 
@@ -171,7 +173,9 @@ def voxelize_batch(
     check_density(density_type)
     odt = out_torch_dtype(out_dtype)
     resolved = resolve_impl(impl, coords)
-    separable = notrunc_separable(density_type, impl, resolved, coords.shape[1], spec, d_count, channelwise)
+    separable = notrunc_separable(density_type, impl, resolved, coords.shape[1], spec, d_count, channelwise,
+                                  channels=weights.shape[2], batch=coords.shape[0], out_dtype=odt,
+                                  grad=needs_grad(coords, weights, radii))
     coords, weights, radii, mask, presorted = _place(
         coords, weights, radii, mask, centers, generator, random_translation, spec=spec, resolved=resolved,
         separable=separable, channelwise=channelwise, random_rotation=random_rotation, presorted=presorted,
@@ -275,8 +279,9 @@ def voxelize_batch_sliced(
     check_density(density_type)
     b, _, c = weights.shape
     resolved = resolve_impl(impl, coords)
-    # routed as one slab would be (notrunc's rule reads the slab depth)
-    separable = notrunc_separable(density_type, impl, resolved, coords.shape[1], spec, slab_depth, channelwise)
+    # routed as one slab would be (notrunc's rule reads the slab depth); no gradient is taken
+    separable = notrunc_separable(density_type, impl, resolved, coords.shape[1], spec, slab_depth, channelwise,
+                                  channels=c, batch=b, out_dtype=odt)
     coords, weights, radii, mask, presorted = _place(
         coords, weights, radii, mask, centers, generator, random_translation, spec=spec, resolved=resolved,
         separable=separable, channelwise=channelwise, random_rotation=random_rotation, presorted=presorted)

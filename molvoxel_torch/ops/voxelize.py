@@ -8,11 +8,12 @@
 ``impl="auto"`` picks by device alone: ``cuda`` for CUDA tensors, ``dense``
 for CPU tensors.  The kernel is float32, so float64 CUDA tensors raise
 unless the caller asks for ``impl="dense"``.  ``gaussian_notrunc`` runs on
-the kernels (with the notrunc threshold row) only where
-``notrunc_use_kernel`` says so, on the dense path when the caller asks for
-``impl="dense"``, and on the separable product (ops/separable.py)
-everywhere else.  Every path is differentiable.  Counterpart of
-``molvoxel_tpu/ops/voxelize.py``.
+the dense path when the caller asks for ``impl="dense"``; otherwise on the
+CPU, and for channel-wise radii, on the separable product
+(ops/separable.py); and on the card on the kernels (with the notrunc
+threshold row) or the separable product, as ``notrunc_use_kernel`` picks
+from the separable product's FLOPs by thresholds measured on an H100.
+Every path is differentiable.  Counterpart of ``molvoxel_tpu/ops/voxelize.py``.
 """
 
 from __future__ import annotations
@@ -20,19 +21,28 @@ from __future__ import annotations
 import torch
 
 from ..core.config import GridSpec
-from .deposit import check_density, check_kernel_dtype, voxelize_deposit, voxelize_deposit_channelwise
+from .deposit import (
+    check_density,
+    check_kernel_dtype,
+    out_torch_dtype,
+    voxelize_deposit,
+    voxelize_deposit_channelwise,
+)
 from .dense import voxelize_dense, voxelize_dense_channelwise
 from .separable import voxelize_separable
 
 IMPLS = ("auto", "cuda", "dense")
 
-# gaussian_notrunc routing crossover, copied from the JAX package
-# (notrunc_use_pallas, molvoxel_tpu/ops/voxelize.py:51-61).  Its values were
-# measured on a TPU and are kept for parity; they are not re-derived on the
-# H100 yet (ROADMAP).
-NOTRUNC_KERNEL_MIN_ATOMS = 1024
-NOTRUNC_KERNEL_MIN_DEPTH = 96
-NOTRUNC_KERNEL_MIN_DIM = 192
+# gaussian_notrunc routing on CUDA: the kernel route when the separable
+# product's bmm (2 B C Dl Vp HW FLOPs) reaches a threshold per grid lane, or
+# one for a training step.  Fitted to the notrunc_routing lines of
+# tools/torch_notrunc_sweep.py: 84 forward and 16 forward + backward shapes,
+# both routes timed by CUDA-graph replay on an "NVIDIA H100 80GB HBM3,
+# 700.00 W" (as nvidia-smi names the card and its power limit; PERF.md §6),
+# where this rule takes the faster route, or one within 7.6% of it, at all
+# 100.  The sweep held radii at 1 A and sigma at 0.5, and timed training in
+# the f32 lane only; its rows are tests/data/torch_notrunc_sweep_h100.jsonl.
+NOTRUNC_KERNEL_MIN_FLOPS = {"float32": 8e9, "bfloat16": 12e9, "grad": 5e8}
 
 
 def default_impl(coords: torch.Tensor) -> str:
@@ -58,24 +68,36 @@ def resolve_impl(impl: str, coords: torch.Tensor) -> str:
     return impl
 
 
-def notrunc_use_kernel(num_atoms: int, dim: int = 0, dl: int | None = None) -> bool:
-    """True when gaussian_notrunc should run on the deposit kernels (the
-    pruned, underflow-radius cutoff) rather than the separable product:
-    many atoms and a deep or wide grid.  Counterpart of notrunc_use_pallas."""
+def notrunc_use_kernel(num_atoms: int, dim: int = 0, dl: int | None = None, *, channels: int = 1, batch: int = 1,
+                       out_dtype="float32", grad: bool = False) -> bool:
+    """True when gaussian_notrunc on CUDA should run on the deposit kernels
+    (the threshold row) rather than the separable product: when the
+    separable product's bmm reaches ``NOTRUNC_KERNEL_MIN_FLOPS``.  Reads
+    Python numbers only, never a tensor, so it makes no host sync.
+    ``num_atoms`` is the padded atom count of a molecule, ``dl`` the planes
+    of a depth slab (the whole depth by default).  Counterpart of
+    notrunc_use_pallas."""
     dl = dim if dl is None else dl
-    return num_atoms >= NOTRUNC_KERNEL_MIN_ATOMS and (
-        dl >= NOTRUNC_KERNEL_MIN_DEPTH or dim >= NOTRUNC_KERNEL_MIN_DIM
-    )
+    lane = "grad" if grad else "float32" if out_torch_dtype(out_dtype) == torch.float32 else "bfloat16"
+    return 2 * batch * channels * dl * num_atoms * dim * dim >= NOTRUNC_KERNEL_MIN_FLOPS[lane]
 
 
 def notrunc_separable(density_type: str, impl: str, resolved: str, num_atoms: int, spec: GridSpec,
-                      d_count: int | None, channelwise: bool) -> bool:
+                      d_count: int | None, channelwise: bool, *, channels: int = 1, batch: int = 1,
+                      out_dtype="float32", grad: bool = False) -> bool:
     """True when a request runs on the separable product: gaussian_notrunc,
     not an explicit ``impl="dense"``, and not a kernel request that
-    ``notrunc_use_kernel`` sends to the kernels."""
+    ``notrunc_use_kernel`` sends to the kernels (it gets the keywords)."""
     if density_type != "gaussian_notrunc" or impl == "dense":
         return False
-    return not (resolved == "cuda" and not channelwise and notrunc_use_kernel(num_atoms, spec.dimension, d_count))
+    return not (resolved == "cuda" and not channelwise and notrunc_use_kernel(
+        num_atoms, spec.dimension, d_count, channels=channels, batch=batch, out_dtype=out_dtype, grad=grad))
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will record a call on these tensors (Python
+    attributes only: nothing is read from the device)."""
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def voxelize(
@@ -99,7 +121,8 @@ def voxelize(
     weights and radii on every path."""
     check_density(density_type)
     resolved = resolve_impl(impl, coords)
-    if notrunc_separable(density_type, impl, resolved, coords.shape[0], spec, d_count, channelwise_radii):
+    if notrunc_separable(density_type, impl, resolved, coords.shape[0], spec, d_count, channelwise_radii,
+                         channels=weights.shape[1], grad=needs_grad(coords, weights, radii)):
         return voxelize_separable(coords, weights, radii, spec=spec, sigma=sigma, mask=mask, d_offset=d_offset,
                                   d_count=d_count, channelwise_radii=channelwise_radii)
     kw = dict(spec=spec, density_type=density_type, sigma=sigma, mask=mask, d_offset=d_offset, d_count=d_count)

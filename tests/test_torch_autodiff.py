@@ -131,6 +131,33 @@ def test_differentiable_batch_matches_pallas_backward(rng, variant):
     _assert_grads(got, (dc, dw, dr), GRAD_BAR)
 
 
+@pytest.mark.parametrize("variant", ["multichunk_v512", "shared_radii", "slab"])
+def test_notrunc_differentiable_batch_matches_pallas_backward(rng, variant):
+    """gaussian_notrunc's kernel route for training (the threshold row, both
+    plain versions behind the autograd.Function) against
+    voxelize_pallas_bwd_batch with density_type="gaussian_notrunc", on the
+    same inputs as the gaussian test above."""
+    if variant == "multichunk_v512":
+        b, vp, v, c, dim, slab = 1, 512, 400, 3, 16, None
+        radii = rng.uniform(0.8, 1.6, (b, vp)).astype(np.float32)
+    elif variant == "shared_radii":
+        b, vp, v, c, dim, slab = 2, 256, 200, 2, 16, None
+        radii = rng.uniform(0.8, 1.6, (vp,)).astype(np.float32)
+    else:
+        b, vp, v, c, dim, slab = 1, 256, 256, 4, 32, (8, 16)
+        radii = np.ones((vp,), np.float32)
+    spec_t, spec_j = TSpec(0.5, dim), JSpec(0.5, dim)
+    coords, weights, mask = _cloud(rng, b, vp, v, c, spec_t.width / 2)
+    dl = dim if slab is None else slab[1]
+    ct = rng.normal(size=(b, c, dl, dim, dim)).astype(np.float32)
+    kw = {} if slab is None else dict(d_offset=slab[0], d_count=slab[1])
+    _, got = _port_batch(coords, weights, radii, mask, ct, spec_t, density_type="gaussian_notrunc", **kw)
+    want = voxelize_pallas_bwd_batch(jnp.asarray(coords), jnp.asarray(weights), jnp.asarray(radii), jnp.asarray(ct),
+                                     spec=spec_j, density_type="gaussian_notrunc", sigma=0.5, mask=jnp.asarray(mask),
+                                     **kw)
+    _assert_grads(got, want, GRAD_BAR * _scale(*want))
+
+
 def test_channelwise_gradients_match_pallas_backward(rng):
     """Channel-wise radii: the virtual-atom expansion is torch ops, so
     autograd folds the virtual gradients back (V = 512 -> 1536 virtual)."""

@@ -80,10 +80,10 @@ exit code:
    bound; the entry point itself must take the port's route.  The phase
    fails if the port's route is more than 10% slower than the other
    anywhere.
-6. convergence: examples/pose_optimize.py through the kernel backward, the
-   61-atom golden ligand at 32^3, sigma 1.0, 400 Adam steps at 3e-2 on
-   (quaternion, shift) from a hidden pose drawn from a numpy seed; it must
-   end below 0.05 A RMSD.
+6. convergence: ``examples/torch_pose_optimize.main`` through the kernel
+   backward, the 61-atom golden ligand at 32^3, sigma 1.0, 400 Adam steps
+   at 3e-2 on (quaternion, shift) from a hidden pose drawn from a numpy
+   seed; it must end below 0.05 A RMSD with 400 backward launches.
 7. sliced_256: 4 ligands at 256^3, res 0.25, 4 channels, f32, each with a
    random rotation and 0.5 A translation, through ``pick_slab_depth`` (64)
    and ``voxelize_batch_sliced`` into a ``np.memmap``: 4 launches, held
@@ -110,6 +110,16 @@ exit code:
    1e-5, the wire checksum against the dequantized coordinates at 1e-5 and
    against f32 at 2e-3, and the chunk loop under sync-debug "error".
    The native parser's g++ build (native_build) runs after phase 2.
+   examples (after library_stream): the example programs examples/torch_*.py
+   through their ``main``, each asserting its own bar: torch_train_cnn (60
+   steps, the loss below 0.8x its start, one forward launch and no
+   backward a step; step ms), torch_screen_library at its defaults (35
+   molecules at 24^3; scores against the same program on the CPU at 1e-5)
+   and over the first 4,096 library records (mols/s),
+   torch_voxelize_complex (image and seeded augmented image against the CPU
+   run at 1e-5; the .pml fallback) and torch_multihost.py as its own
+   process, one NCCL rank (its stream counts; global mass against the
+   dense path at rtol 1e-5); launches and seconds on every line.
 10. wrappers (before the library phases): ComplexWrapper over the golden
    ligand (61 atoms) and pocket (407) of tests/goldens/pocket_types_gaussian.npz
    at 48^3, res 0.5, on the card: against the dense path at 1e-5 with and
@@ -141,7 +151,8 @@ exit code:
    depth slab of the rotated ligand at 256^3 over a (1, 2) mesh, the two
    seeded apart, assembled against one full-depth call at 1e-5.
 14. kernels: one line {"kernels": [...]} with each kernel's launches (the
-   main paths' and, by phase, notrunc_routing's and phases 10-13's), error,
+   main paths' and, by phase, notrunc_routing's, convergence's, examples'
+   and phases 10-13's), error,
    times and bound; rows 1, 2 and 4 carry a "notrunc" entry: a timed
    notrunc_routing case with the kernel launch's ms, its plain version's ms
    and its bound, the kernel route's ms, and the separable product's ms as
@@ -164,6 +175,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDENS = ROOT / "tests" / "goldens"
+sys.path.insert(0, str(ROOT / "examples"))  # the example programs, examples/torch_*.py
 REPLACES = {
     1: "molvoxel_tpu/ops/pallas_deposit.py:407 (_kernel_v5, launched at :813)",
     2: "molvoxel_tpu/ops/pallas_deposit.py:295 (_kernel_gaussian, launched at :716)",
@@ -1092,22 +1104,6 @@ def phase_library(tmp: Path, dev):
     return stream_lines
 
 
-def golden_complex():
-    """(ligand, pocket, center, expected) of tests/goldens/pocket_types_gaussian.npz:
-    its first 61 atoms are the golden ligand (types 0-3) and the other 407 the
-    pocket (types 4-7), as SimpleMolecules of C, N, O and S."""
-    import numpy as np
-
-    from molvoxel_torch.data import SimpleMolecule
-
-    g = load_golden("pocket_types_gaussian")
-    sym = np.asarray(SYMBOLS)
-    t = g["channels"].astype(np.int64)
-    lig = SimpleMolecule(g["coords"][:61].astype(np.float64), list(sym[t[:61]]), [], "ligand")
-    pocket = SimpleMolecule(g["coords"][61:].astype(np.float64), list(sym[t[61:] - 4]), [], "pocket")
-    return lig, pocket, g["center"], g["expected"]
-
-
 def phase_wrappers(tmp: Path):
     """wrappers: ComplexWrapper over the golden ligand and pocket at 48^3,
     res 0.5, on the card, against the same wrapper on the dense path at
@@ -1124,7 +1120,10 @@ def phase_wrappers(tmp: Path):
     from molvoxel_torch.viz import Visualizer, read_dx
 
     t0 = time.perf_counter()
-    lig, pocket, center, expected = golden_complex()
+    import torch_voxelize_complex
+
+    lig, pocket, center = torch_voxelize_complex.golden_complex()
+    expected = load_golden("pocket_types_gaussian")["expected"]
     ag = AtomTypeGetter(SYMBOLS)
     maker = ComplexPointCloudMaker(ag, None, ag, None, channel_type="types")
     wrapper = ComplexWrapper(maker, create_voxelizer(resolution=0.5, dimension=48, device=DEVICE), Visualizer())
@@ -1158,6 +1157,109 @@ def phase_wrappers(tmp: Path):
           "seconds": time.perf_counter() - t0, "ok": bool(ok)})
     if not ok:
         raise SystemExit("wrappers failed")
+    return launches
+
+
+def phase_examples(lib4096: Path, tmp: Path) -> dict:
+    """examples: the example programs examples/torch_*.py on the card, each
+    through its ``main``, which asserts its own bar: torch_train_cnn (60
+    steps; one forward launch and no deposit backward a step),
+    torch_screen_library at its defaults (the query first, 3 of 4 neighbours
+    in the top 5; scores against the same program on the CPU, the dense
+    path, at 1e-5) and over the first 4,096 library records (mols/s),
+    torch_voxelize_complex (image and seeded augmented image against the
+    CPU run at 1e-5) and torch_multihost.py as its own process, one rank on
+    NCCL (its streams' counts; its global mass against the dense path at
+    rtol 1e-5).  Returns the forward launches by table row."""
+    import re
+
+    import numpy as np
+    import torch
+
+    import torch_multihost
+    import torch_screen_library
+    import torch_train_cnn
+    import torch_voxelize_complex
+    from molvoxel_torch.ops import deposit
+    from molvoxel_torch.ops.batch import voxelize_batch
+
+    def run(fn):
+        """(fn(), seconds, launches): host clock and launch counts of one call."""
+        deposit.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(deposit.launches)
+
+    t_start = time.perf_counter()
+    launches = {1: 0, 2: 0}
+    (first, last, step_ms), seconds, n = run(lambda: torch_train_cnn.main(steps=60, device=DEVICE))
+    launches[1] += n["deposit_fwd"]
+    ok = last < 0.8 * first and n == {"deposit_fwd": 60, "deposit_bwd": 0}
+    emit({"phase": "examples", "case": "train_cnn_60_steps_batch16_dim16_c2", "mse_first10": first,
+          "mse_last10": last, "bar": "last < 0.8 x first", "step_ms_median_after_2": step_ms, "launches": n,
+          "seconds": seconds, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("examples: torch_train_cnn launched other than one forward a step")
+
+    (scores, names), seconds, n = run(lambda: torch_screen_library.main(device=DEVICE))
+    launches[2] += n["deposit_fwd"]
+    ref, ref_names = torch_screen_library.main(device="cpu")
+    err = float(np.abs(scores - ref).max())
+    order = np.argsort(scores)[::-1]
+    ok = err <= 1e-5 and names == ref_names and n["deposit_fwd"] == 1 + -(-len(names) // torch_screen_library.BATCH)
+    emit({"phase": "examples", "case": "screen_library_35_mols_dim24_batch8", "molecules": len(scores),
+          "top5": [names[i] for i in order[:5]], "max_abs_err_vs_dense": err, "tol": 1e-5, "launches": n,
+          "seconds": seconds, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("examples: torch_screen_library disagrees with the dense path")
+    (scores, names), seconds, n = run(lambda: torch_screen_library.main(library=lib4096, device=DEVICE))
+    launches[2] += n["deposit_fwd"]
+    ok = len(scores) == 4096 - 2 and n["deposit_fwd"] == 1 + 4096 // torch_screen_library.BATCH
+    emit({"phase": "examples", "case": "screen_library_first_4096_records_dim24_batch8", "molecules": len(scores),
+          "mols_per_s": len(scores) / seconds, "launches": n, "seconds": seconds, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("examples: torch_screen_library did not screen the library's records with atoms")
+
+    (image, aug, result), seconds, n = run(lambda: torch_voxelize_complex.main(out=tmp / "complex", device=DEVICE))
+    launches[1] += n["deposit_fwd"]
+    ref_image, ref_aug, _ = torch_voxelize_complex.main(out=tmp / "complex_cpu", device="cpu")
+    errs = [float((got.cpu() - want).abs().max()) for got, want in ((image, ref_image), (aug, ref_aug))]
+    ok = max(errs) <= 1e-5 and result.suffix == ".pml" and n["deposit_fwd"] == 3
+    emit({"phase": "examples", "case": "voxelize_complex_lig61_pocket407_dim48_c12", "max_abs_err_vs_dense": errs[0],
+          "max_abs_err_vs_dense_rot_trans05": errs[1], "tol": 1e-5, "session": result.name, "launches": n,
+          "seconds": seconds, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("examples: torch_voxelize_complex disagrees with the dense path")
+
+    # a fresh process: the one-rank group it makes and takes down is its own
+    code = ("import json, runpy, sys; sys.argv = ['torch_multihost.py']; "
+            "runpy.run_path('examples/torch_multihost.py', run_name='__main__'); "
+            "from molvoxel_torch.ops import deposit; print(json.dumps(deposit.launches))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"examples: torch_multihost.py failed: {proc.stderr[-2000:]}")
+    out = proc.stdout
+    n = json.loads(out.strip().splitlines()[-1])
+    launches[1] += n["deposit_fwd"]
+    mass = float(re.search(r"global mass = ([0-9.]+)", out).group(1))
+    coords, weights, mask, _ = torch_multihost.local_rows(0)
+    want = float(voxelize_batch(torch.as_tensor(coords), torch.as_tensor(weights),
+                                torch.ones(coords.shape[1]), torch.as_tensor(mask), None,
+                                torch.Generator().manual_seed(torch_multihost.SEED), 0.5, spec=torch_multihost.SPEC,
+                                random_rotation=True).double().sum())
+    rel = abs(mass - want) / want
+    ok = (rel <= 1e-5 and "streamed 64 molecules in 4 batches" in out and "streamed 32 local molecules in 2 batches"
+          in out and "backend nccl" in out and n["deposit_fwd"] == 1 + 4 + 2)
+    emit({"phase": "examples", "case": "multihost_1_rank_nccl_32_rows_dim32_c4_rot_trans05_stream_64",
+          "global_mass": mass, "dense_mass": want, "rel_err": rel, "tol": 1e-5, "launches": n,
+          "seconds_with_start": seconds, "stdout": out.strip().splitlines()[:-1], "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("examples: torch_multihost.py disagrees")
+    emit({"phase": "examples_seconds", "total_s": time.perf_counter() - t_start})
     return launches
 
 
@@ -1557,12 +1659,12 @@ def main() -> int:
 
     from molvoxel_torch import create_voxelizer
     from molvoxel_torch.core.config import GridSpec, small_atom_bucket
-    from molvoxel_torch.core.transform import apply_quaternion, quaternion_to_matrix, rotate
+    from molvoxel_torch.core.transform import quaternion_to_matrix, rotate
     from molvoxel_torch.nn import VoxelCNN, VoxelizeLayer
     from molvoxel_torch.ops import _build, autodiff, deposit
     from molvoxel_torch.ops.batch import random_transform_batch, voxelize_batch
     from molvoxel_torch.ops.dense import voxelize_dense
-    from molvoxel_torch.ops.voxelize import notrunc_use_kernel, voxelize
+    from molvoxel_torch.ops.voxelize import notrunc_use_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2019,52 +2121,20 @@ def main() -> int:
     # 5b. gaussian_notrunc: the kernel route against the separable product
     notrunc = phase_notrunc_routing(dev)
 
-    # 6. convergence: examples/pose_optimize.py through the kernel backward
-    coords0 = torch.as_tensor((lig["coords"] - lig["coords"].mean(0)).astype(np.float32), device=dev)
-    spec32 = GridSpec(0.5, 32)
-    n_atoms = coords0.shape[0]
-    pose_w, pose_r = torch.ones((n_atoms, 1), device=dev), torch.ones(n_atoms, device=dev)
-    prng = np.random.default_rng(0)
-    u = prng.uniform(size=3)
-    q = np.array([np.sqrt(1 - u[0]) * np.sin(2 * np.pi * u[1]), np.sqrt(1 - u[0]) * np.cos(2 * np.pi * u[1]),
-                  np.sqrt(u[0]) * np.sin(2 * np.pi * u[2]), np.sqrt(u[0]) * np.cos(2 * np.pi * u[2])])
-    q = q * 0.25 + np.array([1.0, 0.0, 0.0, 0.0]) * 0.75  # a refinement-scale rotation, as in the example
-    q_true = torch.as_tensor((q / np.linalg.norm(q)).astype(np.float32), device=dev)
-    t_true = torch.as_tensor(prng.uniform(-0.8, 0.8, 3).astype(np.float32), device=dev)
-    target_coords = apply_quaternion(coords0, q_true) + t_true
+    # 6. convergence: examples/torch_pose_optimize.py through the kernel backward
+    import torch_pose_optimize
 
-    def pose_grid(crd):
-        return voxelize(crd, pose_w, pose_r, spec=spec32, sigma=1.0)
-
-    target = pose_grid(target_coords)
-    q_p = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev, requires_grad=True)
-    t_p = torch.zeros(3, device=dev, requires_grad=True)
-    pose_opt = torch.optim.Adam([q_p, t_p], lr=3e-2)
-
-    def pose_coords():
-        return apply_quaternion(coords0, q_p / q_p.norm()) + t_p
-
-    def rmsd():
-        with torch.no_grad():
-            return float(((pose_coords() - target_coords) ** 2).sum(-1).mean().sqrt())
-
-    r0 = rmsd()
     deposit.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(400):
-        pose_opt.zero_grad(set_to_none=True)
-        loss = ((pose_grid(pose_coords()) - target) ** 2).mean() * 1e4
-        loss.backward()
-        pose_opt.step()
+    r0, r1 = torch_pose_optimize.main(steps=400, dim=32, device=DEVICE)
     torch.cuda.synchronize()
     pose_s = time.perf_counter() - t0
-    r1 = rmsd()
-    final_loss = float(loss.detach())
-    ok = r1 < 0.05 and deposit.launches["deposit_bwd"] == 400 and np.isfinite(final_loss)
+    pose_launches = dict(deposit.launches)
+    ok = r1 < 0.05 and pose_launches["deposit_bwd"] == 400
     emit({"phase": "convergence", "case": "pose_optimize_lig61_dim32_sigma1", "steps": 400, "rmsd_start": r0,
-          "rmsd_end": r1, "bar": 0.05, "final_loss": final_loss, "launches": dict(deposit.launches),
-          "ms_per_step": pose_s / 400 * 1e3, "ok": bool(ok)})
+          "rmsd_end": r1, "bar": 0.05, "launches": pose_launches, "ms_per_step": pose_s / 400 * 1e3,
+          "ok": bool(ok)})
     if not ok:
         raise SystemExit(f"pose refinement did not converge: RMSD {r0:.4f} -> {r1:.4f}")
 
@@ -2075,10 +2145,14 @@ def main() -> int:
         sliced = phase_sliced_256(lig_xyz, tmp, rng)
         phase_packing(lig_xyz, rng)
         by_phase = {row: {} for row in (1, 2, 3, 4)}
+        by_phase[1]["convergence"] = pose_launches["deposit_fwd"]
+        by_phase[4]["convergence"] = pose_launches["deposit_bwd"]
         for row, entry in notrunc.items():
             by_phase[row]["notrunc_routing"] = entry["launches"]
         by_phase[1]["wrappers"] = phase_wrappers(tmp)
         stream = phase_library(tmp, dev)
+        for row, n in phase_examples(tmp / "lib4096.sdf", tmp).items():
+            by_phase[row]["examples"] = n
         by_phase[1]["interop_dataset"] = phase_interop(tmp / "lib.sdf", tmp / "store", dev)
         for row, n in phase_parallel(lig_xyz, prot_xyz, lig_w[0], b_coords, b_w, b_mask, seed,
                                      tmp / "lib4096.sdf").items():

@@ -358,6 +358,22 @@ def test_import_loads_no_jax_and_no_molvoxel_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_torch_examples_load_no_jax_and_no_molvoxel_tpu():
+    """The example programs examples/torch_*.py import torch, numpy and
+    molvoxel_torch only."""
+    names = sorted(p.stem for p in (ROOT / "examples").glob("torch_*.py"))
+    assert names == ["torch_multihost", "torch_pose_optimize", "torch_screen_library", "torch_train_cnn",
+                     "torch_voxelize_complex"]
+    code = (
+        f"import sys; sys.path.insert(0, 'examples'); import {', '.join(names)}; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'molvoxel_tpu')); "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_readme_port_snippet(rng):
     vox = create_voxelizer(resolution=0.5, dimension=16, device="cpu")
     coords = rng.uniform(-3, 3, size=(30, 3)).astype(np.float32)

@@ -9,6 +9,18 @@ exit code:
 1. card: ``nvidia-smi`` name and power limit, CUDA and torch versions.
 2. build: compile every kernel from ``molvoxel_torch/csrc`` (one nvcc for
    each source, all started together).
+   prep_vs_plain: the preparation kernel (``deposit_prep``) against
+   ``prepare_plain`` on the same raw inputs at every PREP_CASES shape (the
+   headline batch placed with centers, rotations and translations, the
+   protein padded to its bucket at 48^3 and 128^3, ragged dims, 256^3, the
+   slab at planes 5..31, C = 1 to 12, channel-wise radii sorted after the
+   transform, 512 ligands, 70,000 molecules at 8^3, notrunc rows, presorted
+   input, padding without a mask, a res of 0.375, and a 20,000-atom
+   molecule above the shared-memory line): rows, weights, ranges and
+   permutation bit for bit, and each case launched twice, bit for bit.
+   From then on ``prepare_plain`` raises if entered, and every reading of
+   the launch counts fails the run unless deposit_prep launched as often
+   as deposit_fwd.
 3. kernel_vs_plain: each forward case against ``deposit_plain`` on the
    card, on the same prepared inputs, in the working type (f32 1e-5, bf16
    2^-7*max, fp8 2^-3*max): aligned grids (dims 48, 64), ragged grids (dims
@@ -39,7 +51,7 @@ exit code:
      each with its own random rotation and 0.5 A translation, into a 64^3 x 4
      gaussian grid in bfloat16; the 3262-atom protein at 48^3 and 128^3, f32
      (and gaussian_notrunc at 128^3 against the dense path at 1e-5, on the
-     route ``notrunc_use_kernel`` names: one launch on the kernel, none on
+     route ``notrunc_separable`` names: one launch on the kernel, none on
      the separable product);
    - row 2 (gaussian, ragged or 256^3): the ligand at dims 20 and 40 and at 256^3;
    - row 3 (binary, ragged or 256^3): the ligand at dim 40 and at 256^3;
@@ -47,8 +59,10 @@ exit code:
      ``nn.VoxelizeLayer`` (seeded random rotation and 0.5 A translation, f32
      grids), ``nn.VoxelCNN(4, 64, (16, 32, 64))`` and a ``Linear(64, 1)``,
      MSE on per-molecule labels, Adam over the CNN and per-molecule rigid
-     poses (quaternion and shift): 2 warm-up and 7 timed steps, one forward
-     and one backward launch each.
+     poses (quaternion and shift): 2 warm-up and 7 timed steps, one
+     preparation, one forward and one backward launch each.
+   Each call of rows 1-3 launches the preparation and the forward kernel
+   once.
    Each path's output is checked against the plain path, and each kernel
    is timed (CUDA-graph replay of 10 launches, median of 7; and back to
    back) beside its plain version at that path's shapes; the backward's
@@ -58,6 +72,14 @@ exit code:
    SM x SMs)) and write rate (grid bytes / kernel time).  The headline
    ``forward_batch`` call and the training step are also timed on the host
    clock (median, minimum and maximum of 7).
+   prep_timing: deposit_prep at the headline batch's and the protein's
+   shapes (CUDA-graph replay and back to back) beside prepare_plain timed
+   the same ways, its bound (``prep_bound``) and the launch floor.
+   prep_profile: one headline ``forward_batch`` and one ``forward_single``
+   of the protein at 48^3, each with the plain preparation and with the
+   kernel in turns: host ms (median of 7), the device kernels and copies
+   of one call and its device-busy ms (torch.profiler), and the host time
+   between the entries and exits of its stages (``StageClock``).
    notrunc_routing (after the main paths): gaussian_notrunc's two CUDA
    routes from the same inputs (golden molecules padded as the entry points
    pad them, radii 1.0, sigma 0.5): the kernel route
@@ -93,7 +115,7 @@ exit code:
    the separable product (gaussian_notrunc), at Vp 32 and 64 and C 1 and 4:
    equal at 1e-5 (f32), both timed by CUDA-graph replay in turns; the route
    ``voxelize_batch`` takes on both: unpacked, or for gaussian_notrunc where
-   ``notrunc_use_kernel`` names the kernel, one launch and the separable
+   ``notrunc_separable`` names the kernel, one launch and the separable
    product's grid at 2e-5.
 8. library_store: a library of LIBRARY_RECORDS records synthesized from the
    golden ligand (``write_library``, one all-hydrogen and one empty record
@@ -152,7 +174,9 @@ exit code:
    seeded apart, assembled against one full-depth call at 1e-5.
 14. kernels: one line {"kernels": [...]} with each kernel's launches (the
    main paths' and, by phase, notrunc_routing's, convergence's, examples'
-   and phases 10-13's), error,
+   and phases 10-13's; deposit_prep's every reading of the counts from
+   the goldens on, by phase, and the run fails if the main paths launched
+   it no time), error,
    times and bound; rows 1, 2 and 4 carry a "notrunc" entry: a timed
    notrunc_routing case with the kernel launch's ms, its plain version's ms
    and its bound, the kernel route's ms, and the separable product's ms as
@@ -186,6 +210,51 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 DEVICE = "cuda"
+
+
+# deposit_prep's launches as the readings of the counts saw them, by the
+# phase that was running (PREP_READ["phase"]): every ``launch_counts`` adds
+# the launches counted since the reading before it (or since
+# ``reset_launches``).  The kernels line reports these.
+PREP_READ = {"phase": "kernel_vs_plain", "since_reset": 0, "by_phase": {}}
+
+
+def reset_launches():
+    """Set the kernels' launch counts to 0 (``deposit.reset_launches``)."""
+    from molvoxel_torch.ops import deposit
+
+    deposit.reset_launches()
+    PREP_READ["since_reset"] = 0
+
+
+def add_prep_launches(n: int):
+    """Count ``n`` deposit_prep launches under the running phase."""
+    by_phase = PREP_READ["by_phase"]
+    by_phase[PREP_READ["phase"]] = by_phase.get(PREP_READ["phase"], 0) + n
+
+
+def launch_counts() -> dict:
+    """The kernels' launches since the last ``reset_launches``; fails the
+    run unless deposit_prep launched exactly as often as deposit_fwd: every
+    forward launch took its inputs from the preparation kernel.  Adds the
+    deposit_prep launches it reads to ``PREP_READ``."""
+    from molvoxel_torch.ops import deposit
+
+    n = dict(deposit.launches)
+    if n["deposit_prep"] != n["deposit_fwd"]:
+        raise SystemExit(f"deposit_fwd launched {n['deposit_fwd']} times after {n['deposit_prep']} deposit_prep "
+                         "launches: a forward launch took inputs that the preparation kernel did not make")
+    if n["deposit_prep"] < PREP_READ["since_reset"]:
+        raise SystemExit("the launch counts were set to 0 past chip_smoke.reset_launches")
+    add_prep_launches(n["deposit_prep"] - PREP_READ["since_reset"])
+    PREP_READ["since_reset"] = n["deposit_prep"]
+    return n
+
+
+def fwd_launches() -> int:
+    """deposit_fwd's launches since the last ``reset_launches``, checked as
+    ``launch_counts`` checks them."""
+    return launch_counts()["deposit_fwd"]
 
 
 def emit(obj):
@@ -494,6 +563,305 @@ def first_records(src: Path, n: int, dst: Path) -> Path:
     return dst
 
 
+# deposit_prep against prepare_plain: name, molecule, batch, channels, dim,
+# res, density, slab (d_offset, planes) or None, and the call's options:
+# "bucket" pads the atoms with a mask as the entry points do; "atom_radii"
+# gives each molecule its own radii (B, V); "cw" channel-wise radii;
+# "place" centers and a random rotation and translation; "presorted"; and
+# "nomask" leaves the padding to the preparation.
+PREP_CASES = (
+    ("headline_64lig_dim64_c4", "lig", 64, 4, 64, 0.5, "gaussian", None, {"bucket", "place"}),
+    ("prot_dim48_c1", "prot", 1, 1, 48, 0.5, "gaussian", None, {"bucket"}),
+    ("prot_dim128_c1", "prot", 1, 1, 128, 0.5, "gaussian", None, {"bucket"}),
+    ("lig_dim20_atom_radii", "lig", 2, 4, 20, 0.5, "gaussian", None, {"atom_radii"}),
+    ("lig_dim33_binary", "lig", 2, 4, 33, 0.5, "binary", None, {"atom_radii"}),
+    ("lig_dim40_c12", "lig", 2, 12, 40, 0.5, "gaussian", None, {"atom_radii"}),
+    ("lig_dim50_res0375", "lig", 2, 4, 50, 0.375, "gaussian", None, {"atom_radii"}),
+    ("lig_dim256_res025", "lig", 1, 4, 256, 0.25, "gaussian", None, set()),
+    ("lig_dim64_slab5_27", "lig", 8, 4, 64, 0.5, "gaussian", (5, 27), {"atom_radii"}),
+    ("lig_dim48_c1", "lig", 2, 1, 48, 0.5, "gaussian", None, set()),
+    ("lig_dim48_c6", "lig", 2, 6, 48, 0.5, "gaussian", None, set()),
+    ("lig_dim48_c9_binary", "lig", 2, 9, 48, 0.5, "binary", None, set()),
+    ("lig_dim48_channelwise4_placed", "lig", 2, 4, 48, 0.5, "gaussian", None, {"cw", "place"}),
+    ("complex_dim48_channelwise8_placed", "complex", 3, 8, 48, 0.5, "gaussian", None, {"cw", "place", "bucket"}),
+    ("complex_dim48_c8_placed_sorted", "complex", 8, 8, 48, 0.5, "gaussian", None, {"place", "bucket"}),
+    ("lig512_dim32_c4_placed", "lig", 512, 4, 32, 0.5, "gaussian", None, {"place"}),
+    ("batch70000_dim8_c1", "rand64", 70_000, 1, 8, 0.5, "gaussian", None, {"nomask"}),
+    ("lig_dim48_notrunc", "lig", 2, 4, 48, 0.5, "gaussian_notrunc", None, {"atom_radii"}),
+    ("prot_dim128_notrunc", "prot", 1, 1, 128, 0.5, "gaussian_notrunc", None, {"bucket"}),
+    ("prot_dim48_presorted", "prot", 1, 1, 48, 0.5, "gaussian", None, {"bucket", "presorted"}),
+    ("prot100_dim32_nomask", "prot100", 2, 1, 32, 0.5, "gaussian", None, {"nomask", "place"}),
+    ("prot20000_dim64_above_smem_line", "prot20000", 1, 1, 64, 0.5, "gaussian", None, {"place"}),
+)
+
+
+def prep_molecule(name: str, dev):
+    """(V, 3) float32 coordinates on ``dev``: "lig" the 61-atom golden ligand,
+    "complex" the 468-atom golden complex, "prot" the 3262-atom protein
+    (all about their golden centers), "protN" N atoms of the protein (its
+    first N, or for N above 3262 the protein repeated, each copy shifted by
+    0.37 A along (1, 1, 1)), "rand64" 64 atoms uniform in an 8-A box."""
+    import numpy as np
+    import torch
+
+    if name == "rand64":
+        return (torch.rand((64, 3), generator=torch.Generator().manual_seed(3)) * 4.0 - 2.0).to(dev)
+    if name in ("lig", "complex"):
+        g = load_golden("lig_types_gaussian" if name == "lig" else "pocket_types_gaussian")
+        return torch.as_tensor((g["coords"] - g["center"]).astype(np.float32), device=dev)
+    g = load_golden("protein_single_gaussian")
+    xyz = (g["coords"] - g["center"]).astype(np.float32)
+    n = len(xyz) if name == "prot" else int(name[4:])
+    reps = -(-n // len(xyz))
+    tiled = np.concatenate([xyz + np.float32(0.37 * k) for k in range(reps)])[:n]
+    return torch.as_tensor(tiled, device=dev)
+
+
+def prep_inputs(mol: str, b: int, c: int, opts, dev, seed: int):
+    """The raw inputs of a preparation: (coords, weights, radii, mask,
+    centers, transforms, presorted), made from a seed."""
+    import torch
+
+    from molvoxel_torch.core.config import small_atom_bucket
+    from molvoxel_torch.ops.batch import draw_transforms
+
+    gen = torch.Generator().manual_seed(seed)
+    xyz = prep_molecule(mol, dev)
+    v = len(xyz)
+    vb = small_atom_bucket(v) if "bucket" in opts else v
+    coords = torch.zeros((b, vb, 3), device=dev)
+    coords[:, :v] = xyz
+    coords[:, :v] += (torch.rand((b, v, 3), generator=gen) * 0.2 - 0.1).to(dev)  # each molecule its own jitter
+    if mol == "rand64":
+        coords = (torch.rand((b, vb, 3), generator=gen) * 4.0 - 2.0).to(dev)
+    weights = (torch.rand((b, vb, c), generator=gen) < 0.6).float().to(dev) * torch.rand((b, vb, c),
+                                                                                            generator=gen).to(dev)
+    mask = None
+    if "nomask" not in opts:
+        mask = torch.zeros((b, vb), dtype=torch.bool, device=dev)
+        mask[:, :v] = True
+        mask[:, : min(v, 3)] = False  # a few masked atoms among the real ones
+    if "cw" in opts:
+        radii = torch.linspace(0.8, 1.6, c, device=dev)
+    elif "atom_radii" in opts:
+        radii = (torch.rand((b, vb), generator=gen) * 0.8 + 0.8).to(dev)
+    else:
+        radii = (torch.rand((vb,), generator=gen) * 0.8 + 0.8).to(dev)
+    centers, transforms = None, None
+    if "place" in opts:
+        centers = (torch.rand((b, 3), generator=gen) - 0.5).to(dev)
+        transforms = draw_transforms(gen, b, 0.5, True)
+    return coords, weights, radii, mask, centers, transforms, "presorted" in opts
+
+
+def prep_bound(prepared, coords, weights, radii, mask, plan) -> tuple[float, str]:
+    """Least time (ms) of a preparation: max(bytes / HBM rate, FP32 ops /
+    FP32 rate).  Bytes: the raw inputs read once (coordinates, weights,
+    radii, mask, centers, the (B, 12) table) and the outputs written once
+    (rows, weights, ranges, permutation).  Ops: about 25 for each (row
+    tile, atom) pair of the plane ranges, 30 an atom for its placement,
+    key and row, and one a compare-exchange of the sort
+    (n2 / 2 x log n2 (log n2 + 1) / 2 for n2 words a molecule)."""
+    b, v, _ = coords.shape
+    n_bytes = sum(t.numel() * t.element_size() for t in (coords, weights, radii) + tuple(
+        x for x in (mask,) if x is not None)) + b * 16 * 4
+    n_bytes += sum(t.numel() * t.element_size() for t in (prepared.rows, prepared.weights, prepared.ranges,
+                                                           prepared.perm))
+    vp, vo, nht = prepared.perm.shape[1], prepared.rows.shape[2], prepared.ranges.shape[1]
+    ops = b * (nht * vo * 25 + vo * 30)
+    if plan.sort and vp > 64:
+        lg = (vp - 1).bit_length()
+        ops += b * (1 << lg) // 2 * lg * (lg + 1) // 2
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def prep_plan(density: str, dim: int, res: float, slab, opts):
+    """The PrepPlan of a PREP_CASES row (sigma 0.5)."""
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.ops import deposit
+
+    d_offset, d_count = (0, None) if slab is None else slab
+    return deposit.PrepPlan(GridSpec(res, dim), density != "binary", 0.5, notrunc=density == "gaussian_notrunc",
+                            d_offset=d_offset, d_count=d_count, sort="presorted" not in opts,
+                            channelwise="cw" in opts)
+
+
+def phase_prep_vs_plain(dev, plain) -> list:
+    """prep_vs_plain: deposit_prep against ``plain`` (``prepare_plain``) on
+    the same raw inputs at every PREP_CASES shape: rows, weights, ranges and
+    permutation bit for bit, and two launches bit for bit.  Returns the
+    lines."""
+    import torch
+
+    from molvoxel_torch.ops import deposit
+
+    lines, failed = [], []
+    for k, (name, mol, b, c, dim, res, density, slab, opts) in enumerate(PREP_CASES):
+        coords, w, radii, mask, centers, transforms, presorted = prep_inputs(mol, b, c, opts, dev, seed=k)
+        plan = prep_plan(density, dim, res, slab, opts)
+        table = deposit.transform_table(transforms, dev)
+        before = dict(deposit.launches)
+        got = deposit.deposit_prep(coords, w, radii, mask, centers, table, plan)
+        again = deposit.deposit_prep(coords, w, radii, mask, centers, table, plan)
+        n_launch = {name: (deposit.launches[name] - before[name]) // 2 for name in ("deposit_prep_keys", "deposit_prep")}
+        torch.cuda.synchronize()
+        ref = plain(coords, w, radii, mask, centers, table, plan)
+        fields = ("rows", "weights", "ranges", "perm")
+        equal = {f: same_bits(getattr(got, f), getattr(ref, f)) for f in fields}
+        twice = all(same_bits(getattr(got, f), getattr(again, f)) for f in fields)
+        diff = {f: float((getattr(got, f).double() - getattr(ref, f).double()).abs().max())
+                for f in fields if not equal[f] and getattr(got, f).shape == getattr(ref, f).shape}
+        ok = (all(equal.values()) and twice and got.dl == ref.dl and n_launch["deposit_prep"] == 1
+              and n_launch["deposit_prep_keys"] == int(plan.sort and got.perm.shape[1] > deposit.PREP_SORT_MAX))
+        line = {"phase": "prep_vs_plain", "case": name, "batch": b, "atoms": coords.shape[1],
+                "padded_atoms": got.perm.shape[1], "rows_shape": list(got.rows.shape),
+                "ranges_shape": list(got.ranges.shape), "launches_per_call": n_launch, "bitwise_equal": equal,
+                "max_abs_diff": diff, "two_launches_bitwise_equal": twice, "ok": bool(ok)}
+        emit(line)
+        lines.append(line)
+        if not ok:
+            failed.append(name)
+        del got, again, ref
+    if failed:
+        raise SystemExit(f"prep_vs_plain failed: {failed}")
+    return lines
+
+
+def refuse_plain_prepare(*args, **kw):
+    """Stands in for ``deposit.prepare_plain`` once prep_vs_plain has run:
+    a path on the card that prepares a deposit without the kernel fails
+    the run."""
+    raise SystemExit("prepare_plain was entered on the card: a path prepared a deposit without deposit_prep")
+
+
+def prep_timing(case: str, inputs, plan, plain, launches: int, floor_ms: float) -> dict:
+    """One prep_timing line: deposit_prep at a main path's shape, timed by
+    CUDA-graph replay and back to back, beside ``plain`` (prepare_plain,
+    timed the same ways), its bound (``prep_bound``) and the launch floor;
+    the kernel's outputs held bit for bit against the plain version's.
+    ``inputs``: (coords, weights, radii, mask, centers, Transforms)."""
+    from molvoxel_torch.ops import deposit
+
+    got = deposit.deposit_prep(*inputs, plan)
+    ref = plain(*inputs, plan)
+    bitwise = all(same_bits(getattr(got, f), getattr(ref, f)) for f in ("rows", "weights", "ranges", "perm"))
+    b_ms, b_by = prep_bound(got, inputs[0], inputs[1], inputs[2], inputs[3], plan)
+    line = {"phase": "prep_timing", "case": case, "batch": inputs[0].shape[0], "atoms": inputs[0].shape[1],
+            "sorted": bool(plan.sort and got.perm.shape[1] > 64), "launches": launches,
+            "kernel_ms": time_graph_ms(lambda: deposit.deposit_prep(*inputs, plan)),
+            "kernel_ms_back_to_back": time_ms(lambda: deposit.deposit_prep(*inputs, plan)),
+            "plain_ms": time_graph_ms(lambda: plain(*inputs, plan)),
+            "plain_ms_back_to_back": time_ms(lambda: plain(*inputs, plan), reps=5, inner=3),
+            "bound_ms": b_ms, "bound_by": b_by, "launch_floor_ms": floor_ms, "bitwise_equal_plain": bitwise,
+            "ok": bitwise}
+    emit(line)
+    if not bitwise:
+        raise SystemExit(f"prep_timing {case}: the kernel disagrees with its plain version")
+    return line
+
+
+class StageClock:
+    """Wraps functions (``(owner, attribute, label)``: a module or class and
+    the name of a function on it) so that each call records its entry and
+    exit on the host clock; ``segments`` turns one call's marks into the
+    time between consecutive marks, labelled "a > b".  The originals come
+    back on exit."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.marks = []
+
+    def __enter__(self):
+        self.saved = [(owner, name, getattr(owner, name)) for owner, name, _ in self.targets]
+        for (owner, name, fn), (_, _, label) in zip(self.saved, self.targets):
+            setattr(owner, name, self._wrap(fn, label))
+        return self
+
+    def _wrap(self, fn, label):
+        def timed(*args, **kw):
+            self.marks.append((f"{label}(", time.perf_counter()))
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.marks.append((f"){label}", time.perf_counter()))
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    def call(self, fn):
+        """Marks of one call of fn(), between "start" and "synced"."""
+        import torch
+
+        torch.cuda.synchronize()
+        self.marks = [("start", time.perf_counter())]
+        fn()
+        self.marks.append(("returned", time.perf_counter()))
+        torch.cuda.synchronize()
+        self.marks.append(("synced", time.perf_counter()))
+        return list(self.marks)
+
+
+def segments(marks) -> dict:
+    return {f"{a} > {b}": (tb - ta) * 1e3 for (a, ta), (b, tb) in zip(marks, marks[1:])}
+
+
+def phase_prep_profile(cases, plain) -> list:
+    """prep_profile: each (case, fn, stage targets) call with the plain
+    preparation (``plain`` in place of the kernel wrapper) and with the
+    kernel, in turns (plain, kernel, kernel, plain): its host-clock ms
+    (median of 7 after 2 warm-ups, ending in a synchronize), the device
+    work of one call under torch.profiler (kernels launched, copies, and
+    the device-busy ms from the device rows), and the host time between
+    the stages' entries and exits (median over the 7 calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from molvoxel_torch.ops import autodiff
+
+    kernel_prep = autodiff.deposit_prep
+
+    def with_plain(*args):
+        return plain(*args)
+
+    lines = []
+    for case, fn, targets in cases:
+        for mode in ("plain", "kernel", "kernel", "plain"):
+            autodiff.deposit_prep = with_plain if mode == "plain" else kernel_prep
+            try:
+                fn()
+                fn()
+                host, stages = [], []
+                with StageClock(targets) as clock:
+                    for _ in range(7):
+                        marks = clock.call(fn)
+                        host.append((marks[-1][1] - marks[0][1]) * 1e3)
+                        stages.append(segments(marks))
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+            finally:
+                autodiff.deposit_prep = kernel_prep
+            device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+            busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+            runtime = [e for e in prof.events() if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                                              "cuLaunchKernel", "cudaMemcpyAsync")]
+            keys = stages[0].keys()
+            line = {"phase": "prep_profile", "case": case, "prep": mode,
+                    "host_ms_median": statistics.median(host), "host_ms_min": min(host), "host_ms_max": max(host),
+                    "device_kernels_per_call": len(device) - len(copies), "device_copies_per_call": len(copies),
+                    "runtime_launch_calls": len(runtime), "device_busy_ms": busy_ms,
+                    "stages_ms": {k: statistics.median(st[k] for st in stages if k in st) for k in keys},
+                    "top_kernels": sorted({e.name[:60] for e in device})[:40]}
+            emit(line)
+            lines.append(line)
+    return lines
+
+
 def phase_native_build():
     """native_build: build the host parser with g++ into build/molvoxel_torch/ and load it."""
     from molvoxel_torch import native
@@ -520,7 +888,7 @@ def phase_sliced_256(lig_xyz, tmp: Path, rng):
     import torch
 
     from molvoxel_torch.core.config import GridSpec
-    from molvoxel_torch.ops import batch, deposit
+    from molvoxel_torch.ops import batch
 
     spec = GridSpec(0.25, 256)
     b, c = 4, 4
@@ -536,11 +904,11 @@ def phase_sliced_256(lig_xyz, tmp: Path, rng):
                                            spec=spec, slab_depth=slab, out=out, random_rotation=True)
 
     torch.cuda.synchronize()
-    deposit.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     got = sliced()
     first_s = time.perf_counter() - t0
-    launches = deposit.launches["deposit_fwd"]
+    launches = fwd_launches()
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -570,17 +938,17 @@ def phase_packing(lig_xyz, rng):
     turns (unpacked, packed, packed, unpacked); and the route that
     ``voxelize_batch`` takes on the card: unpacked (its grid is the
     unpacked one, bit for bit, with one kernel launch on the kernel path
-    and none on the separable one), or, where ``notrunc_use_kernel`` sends
+    and none on the separable one), or, where ``notrunc_separable`` sends
     a gaussian_notrunc shape to the kernel, one kernel launch and a grid
     within 2e-5 of the separable product's."""
     import numpy as np
     import torch
 
     from molvoxel_torch.core.config import GridSpec
-    from molvoxel_torch.ops import batch, deposit
+    from molvoxel_torch.ops import batch
     from molvoxel_torch.ops.deposit import voxelize_deposit_batch
     from molvoxel_torch.ops.separable import voxelize_separable_batch
-    from molvoxel_torch.ops.voxelize import notrunc_use_kernel
+    from molvoxel_torch.ops.voxelize import notrunc_separable
 
     spec = GridSpec(0.5, 64)
     dev = lig_xyz.device
@@ -589,11 +957,11 @@ def phase_packing(lig_xyz, rng):
         """The route voxelize_batch takes: "unpacked", "kernel" (the rule's
         kernel route for notrunc) or "other"."""
         vp, c = ww.shape[1:]
-        kernel = density == "gaussian" or notrunc_use_kernel(vp, spec.dimension, channels=c, batch=ww.shape[0])
-        deposit.reset_launches()
+        kernel = density == "gaussian" or not notrunc_separable(density, "auto", "cuda", False)
+        reset_launches()
         got = batch.voxelize_batch(crd, ww, r, mask, None, spec=spec, density_type=density)
         torch.cuda.synchronize()
-        if deposit.launches["deposit_fwd"] != int(kernel):
+        if fwd_launches() != int(kernel):
             return "other"
         if density == "gaussian_notrunc" and kernel:
             return "kernel" if float((got - unpacked).abs().max()) <= 2e-5 else "other"
@@ -749,13 +1117,13 @@ def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, 
     the pairs inside the threshold sphere, the separable product's FLOPs and
     bytes (``separable_work``) and its bound (the bmm at the f32 rate, or
     the bf16 tensor-core rate in the bf16 lane); which route is faster and
-    which one the port takes (``notrunc_use_kernel``)."""
+    which one the port takes (``notrunc_separable``)."""
     import torch
 
     from molvoxel_torch.core.config import GridSpec
     from molvoxel_torch.ops import deposit, separable
     from molvoxel_torch.ops.batch import pick_slab_depth
-    from molvoxel_torch.ops.voxelize import notrunc_use_kernel
+    from molvoxel_torch.ops.voxelize import notrunc_separable
 
     spec = GridSpec(res, dim)
     odt = getattr(torch, out_dtype)
@@ -768,10 +1136,10 @@ def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, 
     routes = {"kernel": lambda: deposit.voxelize_deposit_batch(coords, w, radii, density_type="gaussian_notrunc",
                                                                **kw),
               "separable": lambda: separable.voxelize_separable_batch(coords, w, radii, **kw)}
-    deposit.reset_launches()
+    reset_launches()
     got = routes["kernel"]()
     torch.cuda.synchronize()
-    launches = deposit.launches["deposit_fwd"]
+    launches = fwd_launches()
     ref = routes["separable"]().float()
     err = float((got.float() - ref).abs().max())
     tol = 2e-5 if odt == torch.float32 else 2**-7 * max(float(ref.abs().max()), 1.0)
@@ -795,7 +1163,7 @@ def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, 
     bmm, other_ops, n_bytes = separable_work(b, vp, c, dl, dim, odt)
     bmm_rate = FP32_OPS_PER_S if odt == torch.float32 else BF16_TC_OPS_PER_S
     sep_bound = max((bmm / bmm_rate + other_ops / FP32_OPS_PER_S) * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3)
-    port = "kernel" if notrunc_use_kernel(vp, dim, d_count, channels=c, batch=b, out_dtype=out_dtype) else "separable"
+    port = "separable" if notrunc_separable("gaussian_notrunc", "auto", "cuda", False) else "kernel"
     other = "separable" if port == "kernel" else "kernel"
     line = {"phase": "notrunc_routing", "case": name, "row": 2 if pick_slab_depth(spec) else 1, "batch": b,
             "atoms": int(mask[0].sum()), "padded_atoms": vp,
@@ -819,7 +1187,7 @@ def notrunc_train_case(name, mol, b: int, dim: int, entry: str, dev) -> dict:
     alone and its plain version on the kernel route's prepared inputs; then
     the entry point (``VoxelizeLayer`` on the batch, or
     ``ops.voxelize.voxelize`` on one molecule, both with gradients on) once,
-    which must take the route ``notrunc_use_kernel`` names and give that
+    which must take the route ``notrunc_separable`` names and give that
     route's gradients.  The layer's radii are its own constant 1.0;
     ``voxelize`` also differentiates the per-atom radii."""
     import torch
@@ -827,7 +1195,7 @@ def notrunc_train_case(name, mol, b: int, dim: int, entry: str, dev) -> dict:
     from molvoxel_torch.core.config import GridSpec
     from molvoxel_torch.nn import VoxelizeLayer
     from molvoxel_torch.ops import deposit, separable
-    from molvoxel_torch.ops.voxelize import notrunc_use_kernel, voxelize
+    from molvoxel_torch.ops.voxelize import notrunc_separable, voxelize
 
     spec = GridSpec(0.5, dim)
     coords, w, mask = notrunc_inputs(mol, b, dev)
@@ -864,7 +1232,7 @@ def notrunc_train_case(name, mol, b: int, dim: int, entry: str, dev) -> dict:
     for route in ("kernel", "separable", "separable", "kernel"):
         ms[route].append(time_graph_ms(lambda: step(fns[route])))
     ms = {route: min(t) for route, t in ms.items()}
-    port = "kernel" if notrunc_use_kernel(vp, dim, None, channels=c, batch=b, grad=True) else "separable"
+    port = "separable" if notrunc_separable("gaussian_notrunc", "auto", "cuda", False) else "kernel"
     # the backward launch alone on the kernel route's prepared inputs, and its bound
     rows, wt, _, kdl, gaussian = deposit.prepare_batch(coords, w, torch.ones(vp, device=dev), spec=spec,
                                                        density_type="gaussian_notrunc", sigma=0.5, mask=mask)
@@ -875,12 +1243,12 @@ def notrunc_train_case(name, mol, b: int, dim: int, entry: str, dev) -> dict:
     bwd_bound, bwd_by = bound_bwd(rows, wt, ct_k, wt.abs().amax(dim=1) > 0, spec, kdl, gaussian)
     del rows, wt
     other = "separable" if port == "kernel" else "kernel"
-    deposit.reset_launches()
+    reset_launches()
     got = step(entry_fn)
     torch.cuda.synchronize()
-    launches = dict(deposit.launches)
+    launches = launch_counts()
     taken = "kernel" if launches["deposit_fwd"] == 1 and launches["deposit_bwd"] == 1 else (
-        "separable" if launches == {"deposit_fwd": 0, "deposit_bwd": 0} else "other")
+        "separable" if not any(launches.values()) else "other")
     entry_err = grad_err(got, grads[port])[0]
     line = {"phase": "notrunc_routing", "case": name, "entry": entry, "batch": b, "atoms": int(mask[0].sum()),
             "padded_atoms": vp, "channels": c, "dim": dim, "out_dtype": "float32",
@@ -902,7 +1270,6 @@ def phase_notrunc_routing(dev) -> dict:
     10% slower than the other one anywhere.  Returns the kernels-line fields:
     by table row, the launches of the phase's driven calls (each route run
     once before it is timed) and one timed case."""
-    from molvoxel_torch.ops import deposit
 
     t_start = time.perf_counter()
     mols = notrunc_molecules()
@@ -917,7 +1284,7 @@ def phase_notrunc_routing(dev) -> dict:
         emit(lines[name])
         launches[1] += lines[name]["entry_launches"]["deposit_fwd"]
         launches[4] += lines[name]["entry_launches"]["deposit_bwd"]
-    deposit.reset_launches()
+    reset_launches()
     emit({"phase": "notrunc_routing_seconds", "total_s": time.perf_counter() - t_start})
     failed = [name for name, ln in lines.items() if not ln["ok"]]
     if failed:
@@ -950,7 +1317,6 @@ def phase_library(tmp: Path, dev):
     from molvoxel_torch.data.gridstore import GridShardReader
     from molvoxel_torch.data.pipeline import PaddedBatch
     from molvoxel_torch.native import parse_sdf_file
-    from molvoxel_torch.ops import deposit
     from molvoxel_torch.ops.dense import voxelize_dense
     from molvoxel_torch.parallel.stream import StreamingVoxelizer, _scan_chunks, stream_checksum
 
@@ -963,10 +1329,10 @@ def phase_library(tmp: Path, dev):
     t0 = time.perf_counter()
     lib512 = first_records(lib, 512, tmp / "lib512.sdf")
     store, dx = tmp / "store", tmp / "dx"
-    deposit.reset_launches()
+    reset_launches()
     rc = cli.main(["voxelize", str(lib512), "-o", str(store), "--dimension", "48", "--out-dtype", "bfloat16",
                    "--dx", str(dx)])
-    launches = deposit.launches["deposit_fwd"]
+    launches = fwd_launches()
     reader = GridShardReader(store)
     num_atoms = reader.num_atoms()
     mols = [m.without_hydrogens() for m in parse_sdf_file(lib512)]
@@ -1005,11 +1371,11 @@ def phase_library(tmp: Path, dev):
     base = ["voxelize", str(lib), "--throughput", "--trials", "3", "--random-rotation", "--random-translation", "0.5",
             "--out-dtype", "bfloat16", "--dimension", "64"]
     for label, flags in (("plain", []), ("wire", ["--wire"]), ("presort", ["--presort"])):
-        deposit.reset_launches()
+        reset_launches()
         text = io.StringIO()
         with contextlib.redirect_stdout(text):
             rc = cli.main(base + flags)
-        launches = deposit.launches["deposit_fwd"]
+        launches = fwd_launches()
         payload = json.loads(text.getvalue().strip().splitlines()[-1])
         passes = 1 + 3  # the warm-up pass and three trials
         per_sb = launches / (payload["superbatches"] * passes)
@@ -1116,7 +1482,6 @@ def phase_wrappers(tmp: Path):
 
     from molvoxel_torch import create_voxelizer
     from molvoxel_torch.data import AtomTypeGetter, ComplexPointCloudMaker, ComplexWrapper
-    from molvoxel_torch.ops import deposit
     from molvoxel_torch.viz import Visualizer, read_dx
 
     t0 = time.perf_counter()
@@ -1129,12 +1494,12 @@ def phase_wrappers(tmp: Path):
     wrapper = ComplexWrapper(maker, create_voxelizer(resolution=0.5, dimension=48, device=DEVICE), Visualizer())
     dense = ComplexWrapper(maker, create_voxelizer(resolution=0.5, dimension=48, device=DEVICE, impl="dense"))
     grids, errs = {}, {}
-    deposit.reset_launches()
+    reset_launches()
     for rotate in (False, True):
         kw = dict(center=center, radii=1.0, random_translation=0.5 if rotate else 0.0, random_rotation=rotate, key=7)
         grids[rotate] = wrapper.run(lig, pocket, **kw)
     torch.cuda.synchronize()
-    launches = deposit.launches["deposit_fwd"]
+    launches = fwd_launches()
     for rotate in (False, True):
         kw = dict(center=center, radii=1.0, random_translation=0.5 if rotate else 0.0, random_rotation=rotate, key=7)
         errs[rotate] = float((grids[rotate] - dense.run(lig, pocket, **kw)).abs().max())
@@ -1180,23 +1545,22 @@ def phase_examples(lib4096: Path, tmp: Path) -> dict:
     import torch_screen_library
     import torch_train_cnn
     import torch_voxelize_complex
-    from molvoxel_torch.ops import deposit
     from molvoxel_torch.ops.batch import voxelize_batch
 
     def run(fn):
         """(fn(), seconds, launches): host clock and launch counts of one call."""
-        deposit.reset_launches()
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, dict(deposit.launches)
+        return out, time.perf_counter() - t0, launch_counts()
 
     t_start = time.perf_counter()
     launches = {1: 0, 2: 0}
     (first, last, step_ms), seconds, n = run(lambda: torch_train_cnn.main(steps=60, device=DEVICE))
     launches[1] += n["deposit_fwd"]
-    ok = last < 0.8 * first and n == {"deposit_fwd": 60, "deposit_bwd": 0}
+    ok = last < 0.8 * first and n == {"deposit_prep_keys": 0, "deposit_prep": 60, "deposit_fwd": 60, "deposit_bwd": 0}
     emit({"phase": "examples", "case": "train_cnn_60_steps_batch16_dim16_c2", "mse_first10": first,
           "mse_last10": last, "bar": "last < 0.8 x first", "step_ms_median_after_2": step_ms, "launches": n,
           "seconds": seconds, "ok": bool(ok)})
@@ -1244,6 +1608,9 @@ def phase_examples(lib4096: Path, tmp: Path) -> dict:
         raise SystemExit(f"examples: torch_multihost.py failed: {proc.stderr[-2000:]}")
     out = proc.stdout
     n = json.loads(out.strip().splitlines()[-1])
+    if n["deposit_prep"] != n["deposit_fwd"]:
+        raise SystemExit(f"examples: torch_multihost.py launched deposit_fwd without deposit_prep: {n}")
+    add_prep_launches(n["deposit_prep"])
     launches[1] += n["deposit_fwd"]
     mass = float(re.search(r"global mass = ([0-9.]+)", out).group(1))
     coords, weights, mask, _ = torch_multihost.local_rows(0)
@@ -1284,7 +1651,6 @@ def phase_interop(lib: Path, store: Path, dev):
     from molvoxel_torch.data.gridstore import GridShardReader
     from molvoxel_torch.interop import GridStoreDataset, VoxelGridDataset
     from molvoxel_torch.nn import VoxelCNN
-    from molvoxel_torch.ops import deposit
     from molvoxel_torch.ops.batch import voxelize_batch
 
     spec64 = GridSpec(0.5, 64)
@@ -1300,9 +1666,9 @@ def phase_interop(lib: Path, store: Path, dev):
         torch.cuda.synchronize()
         return molecules, time.perf_counter() - t0
 
-    deposit.reset_launches()
+    reset_launches()
     passes = [one_pass() for _ in range(3)]  # one warm pass, two timed
-    launches = deposit.launches["deposit_fwd"]
+    launches = fwd_launches()
     timed = [s for _, s in passes[1:]]
     molecules = passes[0][0]
     batches_per_pass = -(-LIBRARY_RECORDS // 64)
@@ -1317,7 +1683,7 @@ def phase_interop(lib: Path, store: Path, dev):
         raise SystemExit("interop_dataset failed: molecule count or launches")
 
     # the first 8 batches without augmentation against voxelize_batch on the feeder's batches
-    deposit.reset_launches()
+    reset_launches()
     plain = VoxelGridDataset(lib, SYMBOLS, spec64, batch_size=64, out_dtype="bfloat16", device=DEVICE)
     worst = 0.0
     for k, ((grids, _), batch) in enumerate(zip(plain, SDFBatchFeeder(lib, SYMBOLS, batch_size=64))):
@@ -1328,7 +1694,7 @@ def phase_interop(lib: Path, store: Path, dev):
                              *(torch.as_tensor(a, device=dev) for a in (batch.mask, batch.centers)), None, 0.0,
                              spec=spec64)
         worst = max(worst, float((grids.float() - ref).abs().max()) / (2**-7 * max(float(ref.abs().max()), 1.0)))
-    launches += deposit.launches["deposit_fwd"]
+    launches += fwd_launches()
 
     # streamed into training: 20 steps fed by the augmented dataset
     torch.manual_seed(0)
@@ -1337,7 +1703,7 @@ def phase_interop(lib: Path, store: Path, dev):
     opt = torch.optim.Adam([*cnn.parameters(), *head.parameters()], lr=1e-3)
     feed = iter(DataLoader(ds, batch_size=None, num_workers=0))
     losses, step_ms = [], []
-    deposit.reset_launches()
+    reset_launches()
     for _ in range(20):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1349,7 +1715,7 @@ def phase_interop(lib: Path, store: Path, dev):
         opt.step()
         losses.append(float(loss.detach()))
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    train_launches = deposit.launches["deposit_fwd"]
+    train_launches = fwd_launches()
     launches += train_launches
     del feed
     ok = worst <= 1.0 and all(torch.isfinite(torch.tensor(losses))) and train_launches >= 20
@@ -1402,7 +1768,6 @@ def phase_parallel(lig_xyz, prot_xyz, lig_w, b_coords, b_w, b_mask, seed, lib409
     from molvoxel_torch.core.config import GridSpec
     from molvoxel_torch.core.transform import do_random_transform
     from molvoxel_torch.data.feed import SDFBatchFeeder
-    from molvoxel_torch.ops import deposit
     from molvoxel_torch.ops.batch import voxelize_batch
     from molvoxel_torch.ops.voxelize import voxelize
     from molvoxel_torch.parallel import (
@@ -1423,12 +1788,12 @@ def phase_parallel(lig_xyz, prot_xyz, lig_w, b_coords, b_w, b_mask, seed, lib409
     try:
         spec64 = GridSpec(0.5, 64)
         ones = torch.ones(b_coords.shape[1], device=dev)
-        deposit.reset_launches()
+        reset_launches()
         dp = voxelize_batch_dp(b_coords, b_w, ones, b_mask, None, torch.Generator().manual_seed(seed), 0.5,
                                mesh=mesh, spec=spec64, random_rotation=True, out_dtype="bfloat16")
         full = dp.full_tensor()
         torch.cuda.synchronize()
-        n = deposit.launches["deposit_fwd"]
+        n = fwd_launches()
         launches[1] += n
         ref = voxelize_batch(b_coords, b_w, ones, b_mask, None, torch.Generator().manual_seed(seed), 0.5,
                              spec=spec64, random_rotation=True, out_dtype="bfloat16")
@@ -1444,23 +1809,23 @@ def phase_parallel(lig_xyz, prot_xyz, lig_w, b_coords, b_w, b_mask, seed, lib409
             ("depth_prot3262_dim128_gaussian_f32_rot_trans05", prot_xyz, prot_w, GridSpec(0.5, 128), "gaussian", 1),
         ):
             radii = torch.ones(xyz.shape[0], device=dev)
-            deposit.reset_launches()
+            reset_launches()
             out = voxelize_depth_sharded(xyz, w, radii, None, None, torch.Generator().manual_seed(11), 0.5, mesh=mesh,
                                          spec=spec, density_type=density, random_rotation=True)
             full = out.full_tensor()
             torch.cuda.synchronize()
-            n = deposit.launches["deposit_fwd"]
+            n = fwd_launches()
             launches[row] += n
             placed = do_random_transform(torch.Generator().manual_seed(11), xyz, None, 0.5, True)
             err = float((full - voxelize(placed, w, radii, spec=spec, density_type=density)).abs().max())
             lines.append({"case": label, "row": row, "launches": n, "placements": [str(p) for p in out.placements],
                           "max_abs_err_vs_full_depth": err, "tol": 1e-5, "ok": err <= 1e-5 and n >= 1})
             del out, full
-        deposit.reset_launches()
+        reset_launches()
         grids, mass = voxelize_batch_2d(b_coords, b_w, ones, b_mask, None, torch.Generator().manual_seed(seed), 0.5,
                                         mesh=mesh, spec=spec64, random_rotation=True)
         total = float(grids.full_tensor().double().sum())
-        n = deposit.launches["deposit_fwd"]
+        n = fwd_launches()
         launches[1] += n
         rel = abs(float(mass.full_tensor()) - total) / abs(total)
         lines.append({"case": "2d_headline_64lig_dim64_c4_f32_rot_trans05", "launches": n, "mass": float(
@@ -1470,13 +1835,13 @@ def phase_parallel(lig_xyz, prot_xyz, lig_w, b_coords, b_w, b_mask, seed, lib409
         kept = []
         kw = dict(batch_size=64, out_dtype="bfloat16", random_rotation=True, random_translation=0.5, seed=21,
                   device=DEVICE)
-        deposit.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         stats = StreamingVoxelizer(spec64, mesh=mesh, **kw).run_batches(
             SDFBatchFeeder(lib4096, SYMBOLS, batch_size=64), lambda im, b: kept.append(im.full_tensor()))
         torch.cuda.synchronize()
         mesh_s = time.perf_counter() - t0
-        n = deposit.launches["deposit_fwd"]
+        n = fwd_launches()
         launches[1] += n
         equal = [0]
 
@@ -1511,7 +1876,6 @@ def multiprocess_rank(rank: int, world: int, init_file: str, lib: str, lib512: s
     import torch.distributed as dist
 
     from molvoxel_torch.core.config import GridSpec
-    from molvoxel_torch.ops import deposit
     from molvoxel_torch.parallel import (
         initialize_distributed,
         make_mesh,
@@ -1527,20 +1891,20 @@ def multiprocess_rank(rank: int, world: int, init_file: str, lib: str, lib512: s
         kw = dict(mesh=mesh, batch_size=64, out_dtype="bfloat16")
         aug = dict(random_rotation=True, random_translation=0.5)
         stream_dp_multiprocess(lib512, SYMBOLS, spec64, **kw, **aug)  # warm-up
-        deposit.reset_launches()
+        reset_launches()
         dist.barrier()
         t0 = time.perf_counter()
         stats = stream_dp_multiprocess(lib, SYMBOLS, spec64, **kw, **aug)
         wall = time.perf_counter() - t0
-        lib_launches = deposit.launches["deposit_fwd"]
-        deposit.reset_launches()
+        lib_launches = fwd_launches()
+        reset_launches()
         store = stream_dp_multiprocess(lib512, SYMBOLS, spec48, store_root=Path(out) / "store", **kw)
-        store_launches = deposit.launches["deposit_fwd"]
+        store_launches = fwd_launches()
         # the ligand at 256^3 over a (1, 2) mesh, each rank's generator seeded apart: its slab
         lig = load_golden("lig_features_gaussian")
         xyz = torch.as_tensor(lig["coords"] - lig["center"], device=DEVICE)
         w = torch.as_tensor(lig["channels"][:, :4].astype(np.float32), device=DEVICE)
-        deposit.reset_launches()
+        reset_launches()
         slab = voxelize_depth_sharded(xyz, w, torch.ones(xyz.shape[0], device=DEVICE), None, None,
                                       torch.Generator().manual_seed(100 + rank), 0.5,
                                       mesh=make_mesh(1, 2, device=DEVICE), spec=GridSpec(0.25, 256),
@@ -1550,7 +1914,7 @@ def multiprocess_rank(rank: int, world: int, init_file: str, lib: str, lib512: s
                   "molecules": stats.molecules, "batches": stats.batches, "wall_s": wall,
                   "mols_per_s": stats.molecules / wall, "launches": lib_launches,
                   "store_molecules": store.molecules, "store_launches": store_launches,
-                  "depth_launches": deposit.launches["deposit_fwd"]}
+                  "depth_launches": fwd_launches(), "prep_launches": sum(PREP_READ["by_phase"].values())}
         (Path(out) / f"rank{rank}.json").write_text(json.dumps(result))
         dist.barrier()
     finally:
@@ -1601,6 +1965,7 @@ def phase_multiprocess(lib: Path, lib512: Path, tmp: Path, dev):
     wall = max(r["wall_s"] for r in ranks)
     # a rank whose stripe has run dry launches all-padding steps until the other's is done
     ok = molecules == LIBRARY_RECORDS - 2 and all(r["launches"] >= r["batches"] > 0 for r in ranks)
+    add_prep_launches(sum(r["prep_launches"] for r in ranks))
     emit({"phase": "multiprocess", "case": "stream_dp_multiprocess_2_ranks_gloo_1_card_50k_dim64_c4_bf16_rot_trans05",
           "ranks": ranks, "molecules": molecules, "mols_per_s": molecules / wall, "wall_s": wall,
           "seconds_with_spawn": seconds, "ok": bool(ok)})
@@ -1664,7 +2029,7 @@ def main() -> int:
     from molvoxel_torch.ops import _build, autodiff, deposit
     from molvoxel_torch.ops.batch import random_transform_batch, voxelize_batch
     from molvoxel_torch.ops.dense import voxelize_dense
-    from molvoxel_torch.ops.voxelize import notrunc_use_kernel
+    from molvoxel_torch.ops.voxelize import notrunc_separable
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1682,6 +2047,12 @@ def main() -> int:
               if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source, "ptxas": report})
     phase_native_build()
+
+    # 3a. the preparation kernel against its plain version; from here on no
+    # path may enter the plain version (the comparisons call the saved one)
+    prep_lines = phase_prep_vs_plain(dev, deposit.prepare_plain)
+    plain_prepare = deposit.prepare_plain
+    deposit.prepare_plain = refuse_plain_prepare
 
     lig = load_golden("lig_features_gaussian")
     prot = load_golden("protein_single_gaussian")
@@ -1865,7 +2236,8 @@ def main() -> int:
         raise SystemExit(f"bwd_vs_plain failed: {failed}")
 
     # 4. goldens on CUDA through the public API
-    deposit.reset_launches()
+    PREP_READ["phase"] = "goldens"
+    reset_launches()
     golden_failed = []
     n_goldens = 0
     for path in sorted(GOLDENS.glob("*.npz")):
@@ -1889,12 +2261,13 @@ def main() -> int:
         emit({"phase": "golden", "golden": path.stem, "max_abs_err": err, "tol": tol, "ok": bool(ok)})
         if not ok:
             golden_failed.append(path.stem)
-    golden_launches = deposit.launches["deposit_fwd"]
+    golden_launches = fwd_launches()
     emit({"phase": "goldens", "count": n_goldens, "failed": golden_failed, "launches": golden_launches})
     if golden_failed or n_goldens != 22 or golden_launches <= 0:
         raise SystemExit(f"goldens failed: {golden_failed}, count {n_goldens}, launches {golden_launches}")
 
     # 5. full-width main paths through the public API
+    PREP_READ["phase"] = "main_path"
     kernels = {}
     lig_feat = lig["channels"][:, :4].astype(np.float32)  # (61, 4)
 
@@ -1943,10 +2316,12 @@ def main() -> int:
         return vox.forward_batch(clouds, radii=1.0, random_translation=0.5, random_rotation=True, key=seed,
                                  out_dtype="bfloat16")
 
-    deposit.reset_launches()
+    reset_launches()
     out = headline()
     torch.cuda.synchronize()
-    launches = deposit.launches["deposit_fwd"]
+    launches = fwd_launches()
+    if launches != 1:
+        raise SystemExit(f"forward_batch launched deposit_prep and deposit_fwd {launch_counts()}, not once each")
     e2e = []
     for i in range(9):  # two warm-ups, then seven timed calls
         torch.cuda.synchronize()
@@ -1977,10 +2352,12 @@ def main() -> int:
     for dim in (48, 128):
         spec = GridSpec(0.5, dim)
         vox = create_voxelizer(device=DEVICE, resolution=0.5, dimension=dim)
-        deposit.reset_launches()
+        reset_launches()
         out = vox.forward_single(prot_np, prot["center"], 1.0)
         torch.cuda.synchronize()
-        launches = deposit.launches["deposit_fwd"]
+        launches = fwd_launches()
+        if launches != 1:
+            raise SystemExit(f"forward_single launched deposit_prep and deposit_fwd {launch_counts()}, not once each")
         ref = dense_ref(prot_xyz[None], torch.ones((1, prot_xyz.shape[0], 1), device=dev),
                         torch.ones(prot_xyz.shape[0], device=dev), spec, "gaussian")[0]
         # the kernel inputs as forward_single builds them: atom bucket 4096, masked
@@ -1995,12 +2372,12 @@ def main() -> int:
     # gaussian_notrunc on the protein at 128^3, on the route the routing rule
     # names: one launch (the kernel with the notrunc threshold row) or none
     # (the separable product)
-    nt_route = "kernel" if notrunc_use_kernel(small_atom_bucket(prot_xyz.shape[0]), 128) else "separable"
+    nt_route = "separable" if notrunc_separable("gaussian_notrunc", "auto", "cuda", False) else "kernel"
     vox = create_voxelizer(device=DEVICE, resolution=0.5, dimension=128, density_type="gaussian_notrunc")
-    deposit.reset_launches()
+    reset_launches()
     out = vox.forward_single(prot_np, prot["center"], 1.0)
     torch.cuda.synchronize()
-    nt_launches = deposit.launches["deposit_fwd"]
+    nt_launches = fwd_launches()
     ref = dense_ref(prot_xyz[None], torch.ones((1, prot_xyz.shape[0], 1), device=dev),
                     torch.ones(prot_xyz.shape[0], device=dev), GridSpec(0.5, 128), "gaussian_notrunc")[0]
     err = float((out - ref).abs().max())
@@ -2017,13 +2394,15 @@ def main() -> int:
     lig_ones = torch.ones(61, device=dev)
     for row, density, grids in ((2, "gaussian", ((20, 0.5), (40, 0.5), (256, 0.25))),
                                 (3, "binary", ((40, 0.5), (256, 0.25)))):
-        deposit.reset_launches()
+        reset_launches()
         outs = []
         for dim, res in grids:
             vox = create_voxelizer(device=DEVICE, resolution=res, dimension=dim, density_type=density)
             outs.append(vox.forward_features(lig["coords"], lig["center"], lig_feat, 1.0))
         torch.cuda.synchronize()
-        launches = deposit.launches["deposit_fwd"]
+        launches = fwd_launches()
+        if launches != len(grids):
+            raise SystemExit(f"row {row}: {len(grids)} calls launched {launch_counts()}")
         dim, res = grids[-1]
         spec = GridSpec(res, dim)
         ref = dense_ref(lig_xyz[None], lig_w, lig_ones, spec, density)[0]
@@ -2061,7 +2440,7 @@ def main() -> int:
         opt.step()
         return float(loss.detach())
 
-    deposit.reset_launches()
+    reset_launches()
     losses, step_ms = [], []
     with KernelTimer(autodiff, ("deposit_fwd", "deposit_bwd")) as timer:
         for i in range(9):  # two warm-ups, then seven timed steps
@@ -2071,12 +2450,13 @@ def main() -> int:
             torch.cuda.synchronize()
             if i >= 2:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
-    train_launches = dict(deposit.launches)
+    train_launches = launch_counts()
     steps = len(losses)
     ok = (all(np.isfinite(losses)) and train_launches["deposit_fwd"] == steps
-          and train_launches["deposit_bwd"] == steps)
+          and train_launches["deposit_bwd"] == steps and train_launches["deposit_prep"] == steps)
     emit({"phase": "main_path_train", "row": 4, "case": "train_step_64lig_dim64_c4_f32_cnn16_32_64",
           "steps": steps, "losses": losses, "launches": train_launches,
+          "prep_launches_per_step": train_launches["deposit_prep"] / steps,
           "fwd_launches_per_step": train_launches["deposit_fwd"] / steps,
           "bwd_launches_per_step": train_launches["deposit_bwd"] / steps,
           "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
@@ -2118,19 +2498,56 @@ def main() -> int:
         raise SystemExit("main path training step: backward kernel disagrees with its plain version")
     kernels[4] = dict(line, max_abs_err=max([kerr] + bwd_errs))
 
+    # 5a. the preparation kernel at the main paths' shapes beside its plain
+    # version, and where one call's host time goes with each of them
+    import molvoxel_torch.api.voxelizer as api_voxelizer
+    import molvoxel_torch.data.pipeline as pipeline
+    import molvoxel_torch.ops.batch as ops_batch
+    from molvoxel_torch.ops.batch import draw_transforms
+
+    floor_ms = launch_floor_ms()
+    head_inputs = (b_coords, b_w, ones, b_mask, None,
+                   deposit.transform_table(draw_transforms(torch.Generator().manual_seed(seed), 64, 0.5, True), dev))
+    vp = small_atom_bucket(prot_xyz.shape[0])
+    p_coords = torch.zeros((1, vp, 3), device=dev)
+    p_coords[0, : prot_xyz.shape[0]] = prot_xyz
+    p_mask = torch.arange(vp, device=dev)[None] < prot_xyz.shape[0]
+    prot_inputs = (p_coords, p_mask[..., None].float(), torch.ones(vp, device=dev), p_mask, None,
+                   deposit.Transforms(None, False, False))
+    prep_timed = [prep_timing("forward_batch_64lig_dim64_c4", head_inputs, deposit.PrepPlan(spec64, True, 0.5),
+                              plain_prepare, 1, floor_ms),
+                  prep_timing("forward_single_protein_dim48", prot_inputs,
+                              deposit.PrepPlan(GridSpec(0.5, 48), True, 0.5), plain_prepare, 1, floor_ms)]
+    vox64 = create_voxelizer(device=DEVICE, resolution=0.5, dimension=64)
+    vox48 = create_voxelizer(device=DEVICE, resolution=0.5, dimension=48)
+    shared = [(deposit, "prepare_batch", "prepare_batch"), (deposit, "transform_table", "transform_table"),
+              (autodiff, "deposit_prep", "prep"), (autodiff, "deposit", "deposit"), (autodiff, "deposit_fwd", "launch")]
+    phase_prep_profile([
+        ("forward_batch_64lig_dim64_c4_bf16",
+         lambda: vox64.forward_batch(clouds, radii=1.0, random_translation=0.5, random_rotation=True, key=seed,
+                                     out_dtype="bfloat16"),
+         [(pipeline, "pad_point_clouds", "pad_point_clouds"), (ops_batch, "voxelize_batch", "voxelize_batch")]
+         + shared),
+        ("forward_single_protein_dim48_f32", lambda: vox48.forward_single(prot_np, prot["center"], 1.0),
+         [(api_voxelizer, "_pad_coords", "pad_coords"), (api_voxelizer.Voxelizer, "_run", "run"),
+          (api_voxelizer, "voxelize", "voxelize"), (api_voxelizer, "_finalize", "finalize")] + shared),
+    ], plain_prepare)
+
     # 5b. gaussian_notrunc: the kernel route against the separable product
+    PREP_READ["phase"] = "notrunc_routing"
     notrunc = phase_notrunc_routing(dev)
 
     # 6. convergence: examples/torch_pose_optimize.py through the kernel backward
     import torch_pose_optimize
 
-    deposit.reset_launches()
+    PREP_READ["phase"] = "convergence"
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r0, r1 = torch_pose_optimize.main(steps=400, dim=32, device=DEVICE)
     torch.cuda.synchronize()
     pose_s = time.perf_counter() - t0
-    pose_launches = dict(deposit.launches)
+    pose_launches = launch_counts()
     ok = r1 < 0.05 and pose_launches["deposit_bwd"] == 400
     emit({"phase": "convergence", "case": "pose_optimize_lig61_dim32_sigma1", "steps": 400, "rmsd_start": r0,
           "rmsd_end": r1, "bar": 0.05, "launches": pose_launches, "ms_per_step": pose_s / 400 * 1e3,
@@ -2142,21 +2559,29 @@ def main() -> int:
     # 10-13. the wrappers, the torch datasets, the sharded calls and two ranks on the card
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
+        PREP_READ["phase"] = "sliced_256"
         sliced = phase_sliced_256(lig_xyz, tmp, rng)
+        PREP_READ["phase"] = "packing"
         phase_packing(lig_xyz, rng)
         by_phase = {row: {} for row in (1, 2, 3, 4)}
         by_phase[1]["convergence"] = pose_launches["deposit_fwd"]
         by_phase[4]["convergence"] = pose_launches["deposit_bwd"]
         for row, entry in notrunc.items():
             by_phase[row]["notrunc_routing"] = entry["launches"]
+        PREP_READ["phase"] = "wrappers"
         by_phase[1]["wrappers"] = phase_wrappers(tmp)
+        PREP_READ["phase"] = "library"
         stream = phase_library(tmp, dev)
+        PREP_READ["phase"] = "examples"
         for row, n in phase_examples(tmp / "lib4096.sdf", tmp).items():
             by_phase[row]["examples"] = n
+        PREP_READ["phase"] = "interop_dataset"
         by_phase[1]["interop_dataset"] = phase_interop(tmp / "lib.sdf", tmp / "store", dev)
+        PREP_READ["phase"] = "parallel"
         for row, n in phase_parallel(lig_xyz, prot_xyz, lig_w[0], b_coords, b_w, b_mask, seed,
                                      tmp / "lib4096.sdf").items():
             by_phase[row]["parallel"] = n
+        PREP_READ["phase"] = "multiprocess"
         for row, n in phase_multiprocess(tmp / "lib.sdf", tmp / "lib512.sdf", tmp, dev).items():
             by_phase[row]["multiprocess"] = n
     finally:
@@ -2167,8 +2592,25 @@ def main() -> int:
         kernels[row]["launches_by_phase"] = {"main_path": kernels[row]["launches"], **counts}
         kernels[row]["launches"] += sum(counts.values())
 
-    # 14. kernels line
-    emit({"kernels": [
+    # 14. kernels line: deposit_prep's launches as the readings of the
+    # counts saw them, from the goldens on (not the launches that compared
+    # it with its plain version); each reading also held it equal to
+    # deposit_fwd's (launch_counts)
+    prep_by_phase = {name: n for name, n in PREP_READ["by_phase"].items() if name != "kernel_vs_plain"}
+    if not prep_by_phase.get("main_path"):
+        raise SystemExit(f"deposit_prep launched no time on the main paths: {prep_by_phase}")
+    head = prep_timed[0]
+    prep_entry = {
+        "name": "deposit_prep (the XLA-side preparation of every forward launch)", "route": "cuda",
+        "source": "molvoxel_torch/csrc/deposit_prep.cu",
+        "replaces": "molvoxel_tpu/ops/pallas_deposit.py:741-810 (_run_v5's XLA-side preparation; morton_keys :173, "
+                    "_sort_atoms_spatially :202, _plane_ranges_closed :522) and molvoxel_tpu/ops/batch.py:105-119",
+        "launches": sum(prep_by_phase.values()), "max_abs_err": 0.0 if all(ln["ok"] for ln in prep_lines) else None,
+        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None, "timed_case": head["case"],
+        "launch_floor_ms": floor_ms, "launches_by_phase": prep_by_phase,
+        "protein": {k: prep_timed[1][k] for k in ("case", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
+    emit({"kernels": [prep_entry] + [
         {"name": f"{'deposit_bwd' if row == 4 else 'deposit_fwd'} (table row {row})", "route": "cuda",
          "source": f"molvoxel_torch/csrc/{'deposit_bwd' if row == 4 else 'deposit_fwd'}.cu",
          "replaces": REPLACES[row], "launches": k["launches"], "max_abs_err": k["max_abs_err"],

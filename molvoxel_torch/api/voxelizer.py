@@ -52,9 +52,7 @@ def _generator(key) -> torch.Generator:
 class Voxelizer:
     """Voxelizer on the CUDA deposit kernel (CPU: the plain dense path).
     gaussian_notrunc runs on the CPU as the separable product, and on the
-    card on the kernel (its threshold row) or the separable product, by
-    the separable product's FLOPs against thresholds measured on an H100
-    (ops/voxelize.notrunc_use_kernel)."""
+    card on the kernel (its threshold row; ops/voxelize.notrunc_separable)."""
 
     LIB = "PyTorch"
     RADII_TYPE_LIST = list(RADII_TYPE_LIST)

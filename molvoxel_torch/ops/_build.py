@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "molvoxel_torch"
 BUILD_DIR = DEFAULT_BUILD_DIR  # utils.timing.enable_compilation_cache moves it
-SOURCES = ("deposit_fwd", "deposit_bwd")
+SOURCES = ("deposit_prep", "deposit_fwd", "deposit_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,7 +1,9 @@
 """Batched voxelization over padded molecule batches.
 
 center shift -> Morton presort -> per-molecule random rigid transform ->
-deposit.  On CUDA the batch is the kernels' leading grid axis; on the CPU
+deposit.  On CUDA the batch is the kernels' leading grid axis, and one
+launch of the preparation kernel (ops/deposit.py ``deposit_prep``) does
+the center shift, the sort, the transform and the kernel inputs; on the CPU
 the plain dense op runs per molecule; ``gaussian_notrunc`` routes as in
 ops/voxelize.py.  Every path is differentiable (the training path).
 On the CPU the separable path packs small molecules several to a row
@@ -21,23 +23,20 @@ import torch
 from ..core.config import GridSpec
 from ..core.transform import (  # noqa: F401  (do_random_transform: the JAX package's name here)
     do_random_transform,
-    quaternion_to_matrix,
     random_quaternion,
     random_translation_vector,
-    rotate,
 )
 from .deposit import (
-    CHUNK,
+    apply_table,
     check_density,
     out_torch_dtype,
-    sort_atoms_spatially,
+    transform_table,
     voxelize_deposit_batch,
     voxelize_deposit_batch_channelwise,
 )
 from .dense import voxelize_dense, voxelize_dense_channelwise
 from .separable import voxelize_separable_batch, voxelize_separable_batch_channelwise
 from .voxelize import default_batch_impl, notrunc_separable, resolve_impl  # noqa: F401  (the JAX package's name)
-from .voxelize import needs_grad
 
 # The TPU kernel's output-tile budget, copied from the JAX package
 # (_OUT_BUDGET, molvoxel_tpu/ops/pallas_deposit.py:63) with its whole-row
@@ -60,13 +59,10 @@ def draw_transforms(generator: torch.Generator | None, b: int, random_translatio
 
 def apply_transforms(coords: torch.Tensor, transforms) -> torch.Tensor:
     """Rotate (about the origin) then translate each molecule of (B, V, 3)
-    coords by its row of ``transforms`` (``draw_transforms``'s pair)."""
-    q, t = transforms
-    if q is not None:
-        coords = rotate(coords, quaternion_to_matrix(q).to(coords.device))
-    if t is not None:
-        coords = coords + t.to(device=coords.device, dtype=coords.dtype)[:, None, :]
-    return coords
+    coords by its row of ``transforms`` (``draw_transforms``'s pair): one
+    table of rotation matrices and translations, copied to the card from
+    pinned memory without blocking the host (``deposit.transform_table``)."""
+    return apply_table(coords, transform_table(transforms, coords.device))
 
 
 def random_transform_batch(generator: torch.Generator | None, coords: torch.Tensor, random_translation: float,
@@ -76,28 +72,20 @@ def random_transform_batch(generator: torch.Generator | None, coords: torch.Tens
     return apply_transforms(coords, draw_transforms(generator, coords.shape[0], random_translation, random_rotation))
 
 
-def _place(coords, weights, radii, mask, centers, generator, random_translation, *, spec, resolved, separable,
-           channelwise, random_rotation, presorted, transforms=None):
-    """Center, Morton-sort (kernel path, > CHUNK atoms) and transform a batch:
-    the part of ``voxelize_batch`` before the deposit.  Sorting comes BEFORE
-    the random transform: rigid transforms preserve locality, so one sort
-    serves every augmented sample.  ``transforms`` (drawn beforehand) takes
-    the place of the generator's draw.  Returns (coords, weights, radii,
-    mask, presorted)."""
+def _place(coords, centers, transforms):
+    """Center and transform a batch in torch: the part of ``voxelize_batch``
+    before the deposit on the routes without the preparation kernel (the
+    dense path, the separable product)."""
     if centers is not None:
         coords = coords - centers[:, None, :].to(coords.dtype)
-    if resolved == "cuda" and not separable and not channelwise and coords.shape[1] > CHUNK and not presorted:
-        r_atoms = radii if radii.ndim == 2 else torch.as_tensor(radii, dtype=torch.float32).expand(coords.shape[:2])
-        coords, weights, radii, mask = sort_atoms_spatially(coords, weights, r_atoms, mask, spec)
-        presorted = True
-    if transforms is None:
-        transforms = draw_transforms(generator, coords.shape[0], float(random_translation), random_rotation)
-    return apply_transforms(coords, transforms), weights, radii, mask, presorted
+    return apply_transforms(coords, transforms)
 
 
 def _deposit(coords, weights, radii, mask, *, spec, density_type, sigma, channelwise, resolved, separable,
-             radii_batched, d_offset, d_count, odt, presorted):
-    """The deposit half of ``voxelize_batch``, on placed coordinates."""
+             radii_batched, d_offset, d_count, odt, presorted, centers=None, transforms=None):
+    """The deposit half of ``voxelize_batch``: on placed coordinates, or on
+    the kernel route with ``centers`` and ``transforms`` still to apply (the
+    preparation kernel sorts before it transforms, channel-wise after)."""
     if separable:
         kw = dict(spec=spec, sigma=sigma, mask=mask, d_offset=d_offset, d_count=d_count, out_dtype=odt)
         if channelwise:
@@ -119,7 +107,8 @@ def _deposit(coords, weights, radii, mask, *, spec, density_type, sigma, channel
         # _choose_pack packs them) 1.7-2.4x slower than unpacked at Vp 32 and
         # 64, C 1 and 4 (PERF.md, packing; chip_smoke.py phase_packing)
         fn = voxelize_deposit_batch_channelwise if channelwise else voxelize_deposit_batch
-        return fn(coords, weights, radii, mask=mask, out_dtype=odt, presorted=presorted, **kw)
+        return fn(coords, weights, radii, mask=mask, out_dtype=odt, presorted=presorted, centers=centers,
+                  transforms=transforms, **kw)
 
     fn = voxelize_dense_channelwise if channelwise else voxelize_dense
     outs = [
@@ -173,16 +162,15 @@ def voxelize_batch(
     check_density(density_type)
     odt = out_torch_dtype(out_dtype)
     resolved = resolve_impl(impl, coords)
-    separable = notrunc_separable(density_type, impl, resolved, coords.shape[1], spec, d_count, channelwise,
-                                  channels=weights.shape[2], batch=coords.shape[0], out_dtype=odt,
-                                  grad=needs_grad(coords, weights, radii))
-    coords, weights, radii, mask, presorted = _place(
-        coords, weights, radii, mask, centers, generator, random_translation, spec=spec, resolved=resolved,
-        separable=separable, channelwise=channelwise, random_rotation=random_rotation, presorted=presorted,
-        transforms=transforms)
+    separable = notrunc_separable(density_type, impl, resolved, channelwise)
+    if transforms is None:
+        transforms = draw_transforms(generator, coords.shape[0], float(random_translation), random_rotation)
+    if resolved != "cuda" or separable:  # on the kernels the preparation kernel places the atoms
+        coords, centers, transforms = _place(coords, centers, transforms), None, None
     return _deposit(coords, weights, radii, mask, spec=spec, density_type=density_type, sigma=sigma,
                     channelwise=channelwise, resolved=resolved, separable=separable, radii_batched=radii_batched,
-                    d_offset=d_offset, d_count=d_count, odt=odt, presorted=presorted)
+                    d_offset=d_offset, d_count=d_count, odt=odt, presorted=presorted, centers=centers,
+                    transforms=transforms)
 
 
 def _row_tile(hw: int, w: int, target: int = 1024) -> int | None:
@@ -254,11 +242,13 @@ def voxelize_batch_sliced(
 ):
     """Assemble a FULL (B, C, D, H, W) grid from depth slabs, bounded memory.
 
-    The batch is centered, Morton-sorted and transformed ONCE (one draw from
-    ``generator``); then each slab of ``slab_depth`` planes is deposited with
-    augmentation off, so every slab sees the same rigid transform.  On CUDA
-    slab k is copied to the host on a side stream, through a pinned buffer,
-    while slab k+1 runs; device memory stays O(B * C * slab * H * W).
+    The transforms are drawn ONCE from ``generator``; then each slab of
+    ``slab_depth`` planes is deposited under that same rigid transform (on
+    the kernels each slab's preparation launch centers, sorts and
+    transforms the atoms from the one table, so every slab sees the same
+    atoms in the same order).  On CUDA slab k is copied to the host on a
+    side stream, through a pinned buffer, while slab k+1 runs; device
+    memory stays O(B * C * slab * H * W).
 
     ``out``: a host array to fill (a numpy array or ``np.memmap``, with
     items of the grid dtype's size, or a CPU tensor); None allocates a CPU
@@ -279,12 +269,12 @@ def voxelize_batch_sliced(
     check_density(density_type)
     b, _, c = weights.shape
     resolved = resolve_impl(impl, coords)
-    # routed as one slab would be (notrunc's rule reads the slab depth); no gradient is taken
-    separable = notrunc_separable(density_type, impl, resolved, coords.shape[1], spec, slab_depth, channelwise,
-                                  channels=c, batch=b, out_dtype=odt)
-    coords, weights, radii, mask, presorted = _place(
-        coords, weights, radii, mask, centers, generator, random_translation, spec=spec, resolved=resolved,
-        separable=separable, channelwise=channelwise, random_rotation=random_rotation, presorted=presorted)
+    separable = notrunc_separable(density_type, impl, resolved, channelwise)
+    transforms = draw_transforms(generator, b, float(random_translation), random_rotation)
+    if resolved != "cuda" or separable:
+        coords, centers, transforms = _place(coords, centers, transforms), None, None
+    else:  # one table for every slab's preparation
+        transforms = transform_table(transforms, coords.device)
     result = torch.empty((b, c, dim, dim, dim), dtype=odt) if out is None else out
     host = _host_view(result, odt)
     if tuple(host.shape) != (b, c, dim, dim, dim):
@@ -293,7 +283,8 @@ def voxelize_batch_sliced(
     def slab(d0):
         return _deposit(coords, weights, radii, mask, spec=spec, density_type=density_type, sigma=sigma,
                         channelwise=channelwise, resolved=resolved, separable=separable,
-                        radii_batched=radii_batched, d_offset=d0, d_count=slab_depth, odt=odt, presorted=presorted)
+                        radii_batched=radii_batched, d_offset=d0, d_count=slab_depth, odt=odt, presorted=presorted,
+                        centers=centers, transforms=transforms)
 
     with torch.no_grad():
         if not coords.is_cuda:

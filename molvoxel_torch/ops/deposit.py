@@ -1,31 +1,35 @@
-"""Deposit on the CUDA kernels ``csrc/deposit_fwd.cu`` and ``csrc/deposit_bwd.cu``, and their plain versions.
+"""Deposit on the CUDA kernels ``csrc/deposit_prep.cu``, ``csrc/deposit_fwd.cu`` and ``csrc/deposit_bwd.cu``, and their plain versions.
 
 Counterpart of the forward and backward halves of
-``molvoxel_tpu/ops/pallas_deposit.py``.  The torch side does the O(V)
-bookkeeping:
+``molvoxel_tpu/ops/pallas_deposit.py``.  The O(V) bookkeeping before a
+forward launch is one kernel, ``deposit_prep`` (its plain version,
+``prepare_plain``, composes the torch functions below):
 
 - pad the atom axis to whole 64-atom chunks with far-off, zero-weight atoms;
+- subtract each molecule's center and apply its rigid transform (the
+  batch path: ``transform_table`` carries rotations and translations);
 - sort atoms along a Morton curve (``morton_keys``), so each chunk is
   spatially compact and its plane ranges are tight;
 - build the per-atom rows [x - d_offset*res, y, z, r2_thresh, coef] (B, 8, Vp),
   where r2_thresh is r^2, or for gaussian_notrunc the radius beyond which
   the density is negligible (``notrunc_r2_thresh``), and coef comes from the
   true r^2;
-- plan the kernel's bricks (``brick``): dt depth planes x ht whole h rows
-  a block, chosen per grid; and the backward's warps per atom
-  (``bwd_warps_per_atom``);
 - compute, in closed form, the depth planes [d_lo, d_hi) that each
   (tile of ht rows, atom chunk) pair can reach (``plane_ranges``);
 - expand channel-wise radii into virtual atoms (same position, radius r_c,
   weight only in channel c), so they run on the same kernel.
 
-``deposit_fwd`` (rows, weights -> grid) and ``deposit_bwd`` (cotangent grid
--> gradients of rows and weights) launch their kernels on CUDA tensors and
-run ``deposit_plain`` / ``deposit_bwd_plain`` (the same functions in torch
-tensor ops) on CPU tensors.  Nothing on a CUDA tensor falls back to a plain
-version: a failed build or launch raises.  The wrappers below go through
-``ops.autodiff.deposit``, so they are differentiable in coordinates,
-weights and radii.
+The Python side plans the forward kernel's bricks (``brick``: dt depth
+planes x ht whole h rows a block, chosen per grid) and the backward's warps
+per atom (``bwd_warps_per_atom``).  ``deposit_prep`` (atoms -> rows,
+weights, ranges, permutation), ``deposit_fwd`` (rows, weights -> grid) and
+``deposit_bwd`` (cotangent grid -> gradients of rows and weights) launch
+their kernels on CUDA tensors and run ``prepare_plain`` / ``deposit_plain``
+/ ``deposit_bwd_plain`` (the same functions in torch tensor ops) on CPU
+tensors.  Nothing on a CUDA tensor falls back to a plain version: a failed
+build or launch raises.  The wrappers below go through ``ops.autodiff``
+(``prepare`` and ``deposit``), so they are differentiable in coordinates,
+weights, radii and centers.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core.config import GridSpec, round_up
+from ..core.transform import quaternion_to_matrix, rotate
 from . import _build
 
 CHUNK = 64  # atoms per chunk (kChunk in deposit_fwd.cu)
@@ -48,7 +53,10 @@ TARGET_BLOCKS = 16 * 132  # bricks shrink until a launch has this many blocks: 1
 MIN_LANES = 24  # ... or until a smaller brick would leave most of a warp idle (f32 runs)
 BWD_THREADS = 256  # threads of a backward block (kThreads in deposit_bwd.cu): 8 warps
 BWD_TARGET_WARPS = 16 * 132  # a backward launch spreads atoms over warps until it has this many: 16 per SM
-FAR = 1e3  # coordinate of padding atoms: far outside any grid
+FAR = 1e3  # coordinate of padding atoms: far outside any grid (kFar in deposit_prep.cu)
+PREP_SORT_MAX = 16384  # atoms deposit_prep.cu sorts in one block's shared memory (kSortMax)
+PREP_MAX_THREADS = 1024  # threads of the largest preparation block (kMaxThreads)
+PREP_TARGET_BLOCKS = 132  # a small batch splits its molecules' chunks until a launch has this many blocks
 _PLAIN_BUDGET = 1 << 26  # elements of deposit_plain's (planes, H*W, chunk) temporary
 
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
@@ -61,7 +69,7 @@ NOTRUNC_EPS = 1e-9
 _F32_ZERO_LOG = 103.972  # -ln(2^-150): exp(-x) rounds to f32 +0.0 for x above this
 
 # Launches of each kernel, counted by its wrapper where it launches.
-launches = {"deposit_fwd": 0, "deposit_bwd": 0}
+launches = {"deposit_prep_keys": 0, "deposit_prep": 0, "deposit_fwd": 0, "deposit_bwd": 0}
 
 
 def reset_launches():
@@ -95,14 +103,19 @@ def check_density(density_type: str) -> bool:
     return density_type != "binary"
 
 
+def notrunc_factor(sigma: float, eps: float = NOTRUNC_EPS) -> float:
+    """2 sigma^2 ln(1/eps): ``notrunc_r2_thresh`` is r^2 times this."""
+    log_inv = _F32_ZERO_LOG if eps <= 0.0 else min(math.log(1.0 / eps), _F32_ZERO_LOG)
+    return 2.0 * sigma * sigma * log_inv
+
+
 def notrunc_r2_thresh(r2, sigma: float, eps: float = NOTRUNC_EPS):
     """Squared cutoff radius beyond which a no-cutoff gaussian is negligible.
 
     exp(-0.5 * d2 / (sigma^2 r^2)) <= eps  <=>  d2 >= 2 sigma^2 ln(1/eps) r2.
     eps=0.0 gives the f32 underflow radius (the density rounds to +0.0
     beyond it), i.e. bit-level notrunc."""
-    log_inv = _F32_ZERO_LOG if eps <= 0.0 else min(math.log(1.0 / eps), _F32_ZERO_LOG)
-    return r2 * (2.0 * sigma * sigma * log_inv)
+    return r2 * notrunc_factor(sigma, eps)
 
 
 # ------------------------------------------------------------- bookkeeping
@@ -130,13 +143,12 @@ def morton_keys(coords: torch.Tensor, spec: GridSpec, mask: torch.Tensor | None 
     return key
 
 
-def sort_atoms_spatially(coords, weights, radii, mask, spec: GridSpec):
-    """Reorder atoms (B, Vp, ...) along a Morton curve (stable).  Deposition
-    is permutation-invariant; the order only makes the chunks compact."""
-    order = torch.argsort(morton_keys(coords, spec, mask), dim=1, stable=True)
+def _take_atoms(order, coords, weights, radii, mask):
+    """(B, Vp, ...) arrays in ``order`` along the atom axis; radii only when
+    per atom (B, Vp), mask only when given."""
     coords = torch.take_along_dim(coords, order[..., None], dim=1)
     weights = torch.take_along_dim(weights, order[..., None], dim=1)
-    if radii.ndim == 2:
+    if radii is not None and radii.ndim == 2:
         radii = torch.take_along_dim(radii, order, dim=1)
     if mask is not None:
         mask = torch.take_along_dim(mask, order, dim=1)
@@ -273,6 +285,118 @@ def prepare_deposit(coords, weights, radii, mask, spec: GridSpec, gaussian: bool
     ht = brick_rows(rows.shape[0], wt.shape[1], dl, dim)[1]
     ranges = plane_ranges(rows[:, :3].detach().transpose(1, 2), r2_th.detach(), spec, dl, ht)
     return rows, wt.contiguous(), ranges, dl
+
+
+class Transforms(NamedTuple):
+    """A batch's rigid transforms as one (B, 12) table: each row holds its
+    rotation matrix R row-major, then its translation t (a missing part is
+    zero and its flag False).  The kernel applies R p + t as ``rotate`` and
+    ``apply_transforms`` do."""
+
+    table: torch.Tensor | None
+    rot: bool
+    trans: bool
+
+
+def transform_table(transforms, device) -> Transforms:
+    """(quaternions (B, 4) or None, translations (B, 3) or None) -> a
+    ``Transforms`` on ``device`` (a ``Transforms`` passes through).  R is
+    ``quaternion_to_matrix`` on the quaternions' device, so the table is
+    differentiable in both.  A table built on the host reaches the card as
+    one copy from pinned memory that does not block the host (a pageable
+    copy would wait for the work queued before it); one that carries a
+    gradient is copied as it is."""
+    if isinstance(transforms, Transforms):
+        return transforms
+    q, t = (None, None) if transforms is None else transforms
+    if q is None and t is None:
+        return Transforms(None, False, False)
+    ref = q if q is not None else t
+    b = ref.shape[0]
+    rot = quaternion_to_matrix(q).reshape(b, 9) if q is not None else ref.new_zeros((b, 9))
+    table = torch.cat([rot, t if t is not None else ref.new_zeros((b, 3))], dim=1)
+    device = torch.device(device)
+    if table.device != device:
+        if device.type == "cuda" and table.device.type == "cpu" and not table.requires_grad:
+            table = table.pin_memory().to(device, non_blocking=True)
+        else:
+            table = table.to(device)
+    return Transforms(table, q is not None, t is not None)
+
+
+def apply_table(coords: torch.Tensor, transforms: Transforms) -> torch.Tensor:
+    """Rotate (about the origin) then translate each molecule of (B, V, 3)
+    coords by its row of the table."""
+    if transforms.rot:
+        coords = rotate(coords, transforms.table[:, :9].reshape(-1, 3, 3))
+    if transforms.trans:
+        coords = coords + transforms.table[:, None, 9:12].to(coords.dtype)
+    return coords
+
+
+class PrepPlan(NamedTuple):
+    """What a preparation computes, beside its tensors.
+
+    ``sort``: Morton-sort the atoms (when they fill more than one chunk);
+    False for input already in Morton order.  ``channelwise``: radii are
+    per channel (C,), each atom becomes C virtual atoms, and the sort keys
+    come from the transformed coordinates (that batch path's order); other
+    batches sort by the centered ones, before the transform."""
+
+    spec: GridSpec
+    gaussian: bool
+    sigma: float
+    notrunc: bool = False
+    d_offset: int = 0
+    d_count: int | None = None
+    sort: bool = True
+    channelwise: bool = False
+
+
+class Prepared(NamedTuple):
+    """A preparation's outputs: atom rows (B, 8, Vo), masked weights (B, C,
+    Vo), plane ranges (B, nht, Vo / 64, 2) int32 at the bricks' ht, the
+    permutation (B, Vp) int32 (sorted atom i is padded input atom perm[i])
+    and the local depth Dl.  Vo is Vp, or C * Vp for channel-wise radii."""
+
+    rows: torch.Tensor
+    weights: torch.Tensor
+    ranges: torch.Tensor
+    perm: torch.Tensor
+    dl: int
+
+
+def prepare_plain(coords, weights, radii, mask, centers, transforms: Transforms, plan: PrepPlan) -> Prepared:
+    """The preparation kernel's function in torch tensor ops.
+
+    coords (B, V, 3), weights (B, V, C), radii (V,) or (B, V) per atom or
+    (C,) per channel (``plan.channelwise``), mask (B, V) bool or None,
+    centers (B, 3) or None.  Center, transform, pad, Morton-sort, expand
+    the channel-wise virtual atoms, then ``prepare_deposit``; each step is
+    the function the kernel repeats bit for bit.  Differentiable through
+    autograd (the sort's order is not)."""
+    b, v, _ = coords.shape
+    coords = coords.to(torch.float32)
+    if centers is not None:
+        coords = coords - centers[:, None, :].to(coords.dtype)
+    placed = apply_table(coords, transforms)
+    keyed = placed if plan.channelwise else coords
+    coords = placed
+    r_atoms = None if plan.channelwise else radii if radii.ndim == 2 else radii[None].expand(b, -1)
+    coords, weights, r_atoms, mask = _pad_atoms(coords, weights.to(torch.float32), r_atoms, mask)
+    vp = coords.shape[1]
+    if plan.sort and vp > CHUNK:
+        keyed = torch.nn.functional.pad(keyed, (0, 0, 0, vp - v), value=FAR)
+        order = torch.argsort(morton_keys(keyed, plan.spec, mask), dim=1, stable=True)
+        coords, weights, r_atoms, mask = _take_atoms(order, coords, weights, r_atoms, mask)
+    else:
+        order = torch.arange(vp, device=coords.device).expand(b, vp)
+    if plan.channelwise:
+        coords, weights, r_atoms, mask = expand_channelwise(coords, weights, radii, mask)
+        r_atoms = r_atoms[None].expand(b, -1)
+    rows, wt, ranges, dl = prepare_deposit(coords, weights, r_atoms, mask, plan.spec, plan.gaussian, plan.sigma,
+                                           plan.d_offset, plan.d_count, notrunc=plan.notrunc)
+    return Prepared(rows, wt, ranges, order.to(torch.int32), dl)
 
 
 # ------------------------------------------------------- kernel and plain
@@ -445,6 +569,19 @@ def _kernel_lib(name: str):
                 fn.restype = ctypes.c_int
             if tuple(fn() for fn in consts) != (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES):
                 raise RuntimeError("deposit_fwd.cu bricks disagree with molvoxel_torch/ops/deposit.py")
+        elif name == "deposit_prep":
+            lib.deposit_prep.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 18 + [ctypes.c_float] * 9 + \
+                [ctypes.c_int, ctypes.c_void_p]
+            lib.deposit_prep.restype = ctypes.c_int
+            lib.deposit_prep_keys.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
+                [ctypes.c_void_p]
+            lib.deposit_prep_keys.restype = ctypes.c_int
+            consts = (lib.deposit_prep_chunk, lib.deposit_prep_sort_max, lib.deposit_prep_max_threads)
+            for fn in consts:
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
+            if tuple(fn() for fn in consts) != (CHUNK, PREP_SORT_MAX, PREP_MAX_THREADS):
+                raise RuntimeError("deposit_prep.cu constants disagree with molvoxel_torch/ops/deposit.py")
         else:
             lib.deposit_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
                 [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -592,6 +729,123 @@ def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, 
     return grad_rows, grad_w
 
 
+def prep_split(b: int, nvc: int) -> tuple[int, int]:
+    """(blocks a molecule, 64-atom output chunks a block) of a preparation
+    launch: one block a molecule, or for a batch of fewer than
+    ``PREP_TARGET_BLOCKS`` molecules its chunks shared out over blocks
+    until the launch has about that many (one an SM of an H100 SXM)."""
+    want = min(nvc, max(1, -(-PREP_TARGET_BLOCKS // b)))
+    cpb = -(-nvc // want)
+    return -(-nvc // cpb), cpb
+
+
+def prep_threads(atoms: int, sort_words: int) -> int:
+    """Threads of a preparation block: one an output atom of the block, or
+    one a compare-exchange of the sort (``sort_words`` / 2), 128 to 1024."""
+    need = max(atoms, sort_words // 2)
+    return min(PREP_MAX_THREADS, max(128, round_up(need, 32)))
+
+
+def _check_prep_inputs(coords, weights, radii, mask, centers, table, plan: PrepPlan):
+    """Shape, dtype, device and layout checks of the preparation kernel."""
+    dev = coords.device
+    if dev.type != "cuda":
+        raise ValueError(f"deposit_prep runs on CUDA or CPU tensors, got {dev}")
+    if coords.ndim != 3 or coords.shape[2] != 3:
+        raise ValueError(f"coords must be (B, V, 3), got {tuple(coords.shape)}")
+    b, v, _ = coords.shape
+    if weights.ndim != 3 or tuple(weights.shape[:2]) != (b, v):
+        raise ValueError(f"weights must be (B={b}, V={v}, C), got {tuple(weights.shape)}")
+    want_r = [(weights.shape[2],)] if plan.channelwise else [(v,), (b, v)]
+    if tuple(radii.shape) not in want_r:
+        raise ValueError(f"radii must be one of {want_r}, got {tuple(radii.shape)}")
+    if v > 65536:
+        raise ValueError(f"deposit_prep takes at most 65536 atoms a molecule, got {v}")
+    named = [("coords", coords, torch.float32), ("weights", weights, torch.float32), ("radii", radii, torch.float32)]
+    if mask is not None:
+        if tuple(mask.shape) != (b, v):
+            raise ValueError(f"mask must be (B={b}, V={v}), got {tuple(mask.shape)}")
+        named.append(("mask", mask, torch.bool))
+    if centers is not None:
+        if tuple(centers.shape) != (b, 3):
+            raise ValueError(f"centers must be (B={b}, 3), got {tuple(centers.shape)}")
+        named.append(("centers", centers, torch.float32))
+    if table is not None:
+        if tuple(table.shape) != (b, 12):
+            raise ValueError(f"the transform table must be (B={b}, 12), got {tuple(table.shape)}")
+        named.append(("transform table", table, torch.float32))
+    for name, t, dtype in named:
+        if t.dtype != dtype or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def deposit_prep(coords, weights, radii, mask, centers, transforms: Transforms, plan: PrepPlan) -> Prepared:
+    """Prepare a deposit: the arguments and result of ``prepare_plain``.
+
+    CUDA tensors launch ``csrc/deposit_prep.cu``'s preparation kernel once
+    (counted as ``deposit_prep``); above ``PREP_SORT_MAX`` atoms its keys
+    kernel runs first (counted as ``deposit_prep_keys``) and
+    ``torch.argsort`` sorts the keys it writes.  CPU tensors run
+    ``prepare_plain``.  Nothing here
+    synchronises the host.  Raises on anything the kernel does not take."""
+    if coords.device.type == "cpu":
+        return prepare_plain(coords, weights, radii, mask, centers, transforms, plan)
+    table = None if transforms.table is None else transforms.table.to(torch.float32)
+    _check_prep_inputs(coords, weights, radii, mask, centers, table, plan)
+    b, v, _ = coords.shape
+    c = weights.shape[2]
+    spec = plan.spec
+    dim = spec.dimension
+    dev = coords.device
+    vp = round_up(v, CHUNK)
+    vo = c * vp if plan.channelwise else vp
+    dl = dim if plan.d_count is None else plan.d_count
+    ht = brick_rows(b, c, dl, dim)[1]
+    nht = -(-dim // ht)
+    sort = plan.sort and vp > CHUNK
+    radii_mode = 2 if plan.channelwise else 1 if radii.ndim == 2 else 0
+    lb, res = float(spec.lower_bound), float(spec.resolution)
+    scale = ((1 << 5) - 1) / max(spec.width, 1e-6)  # morton_keys' scale
+    lib = _kernel_lib("deposit_prep")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    order = None
+    if sort and vp > PREP_SORT_MAX:
+        keys = torch.empty((b, vp), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.deposit_prep_keys(coords.data_ptr(), _ptr(mask), _ptr(centers), _ptr(table), keys.data_ptr(),
+                                       b, v, vp, int(transforms.rot), int(transforms.trans), int(plan.channelwise),
+                                       lb, scale, stream)
+        if rc != 0:
+            raise RuntimeError(f"deposit_prep keys launch failed with cudaError {rc}")
+        launches["deposit_prep_keys"] += 1
+        order = torch.argsort(keys, dim=1, stable=True).to(torch.int32)
+    rows = torch.empty((b, 8, vo), dtype=torch.float32, device=dev)
+    wt = torch.empty((b, c, vo), dtype=torch.float32, device=dev)
+    ranges = torch.empty((b, nht, vo // CHUNK, 2), dtype=torch.int32, device=dev)
+    perm = torch.empty((b, vp), dtype=torch.int32, device=dev)
+    words = 1 << (vp - 1).bit_length() if sort and order is None else 0
+    split, cpb = prep_split(b, vo // CHUNK)
+    with torch.cuda.device(dev):
+        rc = lib.deposit_prep(
+            coords.data_ptr(), weights.data_ptr(), radii.data_ptr(), _ptr(mask), _ptr(centers), _ptr(table),
+            _ptr(order), rows.data_ptr(), wt.data_ptr(), ranges.data_ptr(), perm.data_ptr(),
+            b, v, vp, c, vo, dl, dim, ht, nht, split, cpb, radii_mode, int(transforms.rot), int(transforms.trans), int(sort),
+            int(plan.channelwise), int(plan.gaussian), int(plan.notrunc),
+            lb, float(spec.upper_bound), scale, res, float(np.float32(1.0) / np.float32(res)),
+            float(np.float32(plan.d_offset) * np.float32(res)), float((ht - 1) * res),
+            -(0.5 / (plan.sigma * plan.sigma)), notrunc_factor(plan.sigma), prep_threads(cpb * CHUNK, words),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"deposit_prep kernel launch failed with cudaError {rc}")
+    launches["deposit_prep"] += 1
+    return Prepared(rows, wt, ranges, perm, dl)
+
+
 # ------------------------------------------------------------- wrappers
 
 
@@ -610,40 +864,56 @@ def _pad_atoms(coords, weights, radii, mask):
 
 
 def prepare_batch(coords, weights, radii, *, spec: GridSpec, density_type: str = "gaussian", sigma: float = 0.5,
-                  mask=None, d_offset=0, d_count: int | None = None, presorted: bool = False):
+                  mask=None, d_offset=0, d_count: int | None = None, presorted: bool = False, centers=None,
+                  transforms=None, channelwise: bool = False):
     """Padded, sorted kernel inputs for a batch: (rows, weights, ranges, Dl,
-    gaussian), exactly what voxelize_deposit_batch hands to the kernels."""
+    gaussian), exactly what voxelize_deposit_batch hands to the kernels,
+    from one preparation (``ops.autodiff.prepare``: the kernel on CUDA
+    tensors, ``prepare_plain`` on CPU ones).  ``centers`` (B, 3) are
+    subtracted and ``transforms`` (``draw_transforms``' pair or a
+    ``Transforms``) applied first; the Morton keys come from the centered
+    coordinates, or with ``channelwise`` radii (C,) from the transformed
+    ones (each caller's order of sort and transform)."""
+    from .autodiff import prepare  # autodiff imports this module
+
     gaussian = check_density(density_type)
     check_kernel_dtype(coords.is_cuda, coords.dtype)
-    b = weights.shape[0]
-    radii = torch.as_tensor(radii, dtype=torch.float32, device=coords.device)
-    if radii.ndim == 1:
-        radii = radii[None, :].expand(b, -1)
-    coords, weights, radii, mask = _pad_atoms(coords.to(torch.float32), weights.to(torch.float32), radii, mask)
-    if coords.shape[1] > CHUNK and not presorted:
-        coords, weights, radii, mask = sort_atoms_spatially(coords, weights, radii, mask, spec)
-    rows, wt, ranges, dl = prepare_deposit(coords, weights, radii, mask, spec, gaussian, sigma, d_offset, d_count,
-                                           notrunc=density_type == "gaussian_notrunc")
+    dev = coords.device
+    radii = torch.as_tensor(radii, dtype=torch.float32, device=dev)
+    if radii.ndim == 0:
+        radii = radii.expand(coords.shape[1])
+    plan = PrepPlan(spec, gaussian, sigma, notrunc=density_type == "gaussian_notrunc", d_offset=d_offset,
+                    d_count=d_count, sort=not presorted, channelwise=channelwise)
+    rows, wt, ranges, dl = prepare(
+        coords.to(torch.float32).contiguous(), weights.to(torch.float32).contiguous(), radii.contiguous(),
+        None if mask is None else mask.contiguous(),
+        None if centers is None else centers.to(device=dev, dtype=torch.float32).contiguous(),
+        transform_table(transforms, dev), plan)
     return rows, wt, ranges, dl, gaussian
 
 
 def voxelize_deposit_batch(coords, weights, radii, *, spec: GridSpec, density_type: str = "gaussian",
                            sigma: float = 0.5, mask=None, d_offset=0, d_count: int | None = None,
-                           out_dtype="float32", presorted: bool = False) -> torch.Tensor:
+                           out_dtype="float32", presorted: bool = False, centers=None,
+                           transforms=None) -> torch.Tensor:
     """Batched deposit -> (B, C, Dl, H, W) with per-atom radii.
 
     coords (B, V, 3); weights (B, V, C); radii (V,) shared or (B, V); mask
-    (B, V) bool or None.  ``presorted``: atoms already arrive in Morton
-    order (ops.batch sorts before the random transform), so no sort here.
-    Differentiable in coords, weights and radii: the forward kernel runs
-    forward, the backward kernel backward.  Counterpart of
-    voxelize_pallas_batch and its custom VJP (voxelize_pallas_bwd_batch)."""
+    (B, V) bool or None.  ``centers`` (B, 3) and ``transforms`` place the
+    atoms first (center, Morton sort, transform: ops.batch's order, so one
+    sort serves every augmented sample).  ``presorted``: atoms already
+    arrive in Morton order, so no sort.  Differentiable in coords, weights,
+    radii, centers and the transforms' quaternions and translations: the
+    preparation and forward kernels run forward, the backward kernel and
+    the preparation's explicit VJP backward.
+    Counterpart of voxelize_pallas_batch and its custom VJP
+    (voxelize_pallas_bwd_batch)."""
     from .autodiff import deposit  # autodiff imports this module
 
     b, _, c = weights.shape
     rows, wt, ranges, dl, gaussian = prepare_batch(
         coords, weights, radii, spec=spec, density_type=density_type, sigma=sigma, mask=mask,
-        d_offset=d_offset, d_count=d_count, presorted=presorted,
+        d_offset=d_offset, d_count=d_count, presorted=presorted, centers=centers, transforms=transforms,
     )
     out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype))
     return out.reshape(b, c, dl, spec.dimension, spec.dimension)
@@ -666,23 +936,25 @@ def expand_channelwise(coords, weights, radii, mask):
 
 def voxelize_deposit_batch_channelwise(coords, weights, radii, *, spec: GridSpec, density_type: str = "gaussian",
                                        sigma: float = 0.5, mask=None, d_offset=0, d_count: int | None = None,
-                                       out_dtype="float32", presorted: bool = False) -> torch.Tensor:
+                                       out_dtype="float32", presorted: bool = False, centers=None,
+                                       transforms=None) -> torch.Tensor:
     """Batched deposit with channel-wise radii (C,) -> (B, C, Dl, H, W).
 
-    The real atoms are Morton-sorted first, then expanded into virtual atoms
+    The real atoms are centered, transformed and Morton-sorted (by their
+    transformed coordinates) first, then expanded into virtual atoms
     (``expand_channelwise``), so each virtual chunk is single-channel and
-    spatially local.  Counterpart of voxelize_pallas_batch_channelwise."""
-    check_kernel_dtype(coords.is_cuda, coords.dtype)
-    radii = torch.as_tensor(radii, dtype=torch.float32, device=coords.device)
-    coords, weights, _, mask = _pad_atoms(coords.to(torch.float32), weights.to(torch.float32), None, mask)
-    if coords.shape[1] > CHUNK and not presorted:
-        ones = torch.ones(coords.shape[:2], dtype=torch.float32, device=coords.device)
-        coords, weights, _, mask = sort_atoms_spatially(coords, weights, ones, mask, spec)
-    coords_x, wx, radii_x, mask_x = expand_channelwise(coords, weights, radii, mask)
-    return voxelize_deposit_batch(
-        coords_x, wx, radii_x, spec=spec, density_type=density_type, sigma=sigma, mask=mask_x,
-        d_offset=d_offset, d_count=d_count, out_dtype=out_dtype, presorted=True,
+    spatially local; one preparation does all of it.  Counterpart of
+    voxelize_pallas_batch_channelwise."""
+    from .autodiff import deposit  # autodiff imports this module
+
+    b, _, c = weights.shape
+    rows, wt, ranges, dl, gaussian = prepare_batch(
+        coords, weights, radii, spec=spec, density_type=density_type, sigma=sigma, mask=mask,
+        d_offset=d_offset, d_count=d_count, presorted=presorted, centers=centers, transforms=transforms,
+        channelwise=True,
     )
+    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype))
+    return out.reshape(b, c, dl, spec.dimension, spec.dimension)
 
 
 def voxelize_deposit(coords, weights, radii, *, spec: GridSpec, density_type: str = "gaussian", sigma: float = 0.5,

@@ -243,7 +243,7 @@ def test_public_exports():
 
 
 # the JAX package's names whose counterpart in the port has another name
-RENAMED = {"notrunc_use_pallas": "notrunc_use_kernel"}
+RENAMED = {"notrunc_use_pallas": "notrunc_separable"}
 # the Pallas kernels' module: its counterpart is ops/deposit.py
 PALLAS_ONLY = ("molvoxel_tpu.ops.pallas_deposit",)
 
@@ -273,7 +273,8 @@ def test_every_public_name_of_the_jax_package_has_a_counterpart():
     """Every public module, class and function of molvoxel_tpu has one at
     the same module path in molvoxel_torch, but for the Pallas kernels'
     module (ops/pallas_deposit.py, whose counterpart is ops/deposit.py) and
-    the renamed notrunc_use_pallas (notrunc_use_kernel)."""
+    the renamed notrunc_use_pallas (notrunc_separable: the same decision,
+    asked the other way round)."""
     import importlib
 
     jax_side, port = _public_surface("molvoxel_tpu"), _public_surface("molvoxel_torch")

@@ -34,7 +34,7 @@ from molvoxel_torch.core.config import GridSpec
 from molvoxel_torch.data import getter as tget
 from molvoxel_torch.native import build as tbuild
 from molvoxel_torch.native import fastparse as tfast
-from molvoxel_torch.ops.deposit import morton_keys, sort_atoms_spatially
+from molvoxel_torch.ops.deposit import PrepPlan, Transforms, morton_keys, prepare_plain
 from molvoxel_tpu.core.config import GridSpec as JSpec
 from molvoxel_tpu.data import getter as jget
 
@@ -322,15 +322,21 @@ def test_morton_presort_and_pack_wire_equal_jax(library):
 
 
 def test_morton_presort_keys_equal_the_device_sort(library):
-    """The host presort orders atoms exactly as ops.deposit.sort_atoms_spatially
-    does (the same keys, both stable), dims 16 and 24."""
+    """The host presort orders atoms exactly as the deposit's preparation
+    does (``prepare_plain``'s permutation, the plain version of the
+    preparation kernel: the same keys, both stable), dims 16 and 24."""
     (batch,) = list(tfeed.SDFBatchFeeder(library, SYMBOLS, batch_size=40, bucket=256))
     for spec in (GridSpec(0.5, 16), GridSpec(0.375, 24)):
         centered = torch.as_tensor(batch.coords - batch.centers[:, None, :])
         mask = torch.as_tensor(batch.mask)
         host = tfeed.morton_presort(batch, spec)
-        crd, w, _, m = sort_atoms_spatially(centered, torch.as_tensor(batch.weights), torch.ones(mask.shape), mask,
-                                            spec)
+        weights = torch.as_tensor(batch.weights)
+        assert centered.shape[1] % 64 == 0  # no padding: the permutation covers every atom
+        order = prepare_plain(centered, weights, torch.ones(mask.shape[1]), mask, None, Transforms(None, False, False),
+                              PrepPlan(spec, True, 0.5)).perm.long()
+        crd = torch.take_along_dim(centered, order[..., None], dim=1)
+        w = torch.take_along_dim(weights, order[..., None], dim=1)
+        m = torch.take_along_dim(mask, order, dim=1)
         np.testing.assert_array_equal(host.coords - host.centers[:, None, :], crd.numpy())
         np.testing.assert_array_equal(host.weights, w.numpy())
         np.testing.assert_array_equal(host.mask, m.numpy())

@@ -249,8 +249,10 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         _build.load("deposit_fwd")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("deposit_bwd")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("deposit_prep")
     assert _build.library_path("deposit_fwd").name.startswith("libdeposit_fwd-")
-    assert _build.SOURCES == ("deposit_fwd", "deposit_bwd")
+    assert _build.SOURCES == ("deposit_prep", "deposit_fwd", "deposit_bwd")
 
 
 
@@ -476,7 +478,7 @@ def test_bwd_warps_per_atom_is_what_the_wrapper_passes(rng, monkeypatch):
     assert deposit.launches["deposit_bwd"] == before + 3
 
 
-@pytest.mark.parametrize("source", ["deposit_fwd.cu", "deposit_bwd.cu"])
+@pytest.mark.parametrize("source", ["deposit_fwd.cu", "deposit_bwd.cu", "deposit_prep.cu"])
 def test_warp_collectives_are_not_behind_a_branch(source):
     """A __*_sync call that only some lanes of its mask reach hangs the warp
     on the card, and nothing on the CPU runs the kernel.  Every such call in

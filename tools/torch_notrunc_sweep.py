@@ -15,11 +15,12 @@ separable product's FLOPs and bytes.  The shapes are the phase's own and a
 grid around them: the golden ligand (61 atoms, C = 4) in batches of 1 to
 1,024 at 32^3 to 128^3 and in 64-plane slabs at 256^3, res 0.25; the golden
 complex (468 atoms, C = 8); the golden protein and its first 128 to 2,048
-atoms (C = 1) at 32^3 to 256^3; f32 and bf16.  The thresholds of
-``ops/voxelize.notrunc_use_kernel`` are read off this sweep; its output,
-kept under ``tests/data/``, holds the rule in the CPU tests.  Unlike the
-phase, it fails no shape for its route; it stops only when the two routes
-disagree.
+atoms (C = 1) at 32^3 to 256^3; f32 and bf16.  Its output, kept under
+``tests/data/``, holds the CPU tests to the routing rule of
+``ops/voxelize.notrunc_separable`` (the kernel route for one radius per
+atom): that route must be within 10% of the faster one at every line.
+Unlike the phase, it fails no shape for its route; it stops only when the
+two routes disagree.
 One JSON line per shape on standard output, and into ``--out`` if given;
 the card's ``nvidia-smi`` name and power limit first.  Needs one CUDA card.
 """

@@ -15,9 +15,11 @@ exit code:
    protein padded to its bucket at 48^3 and 128^3, ragged dims, 256^3, the
    slab at planes 5..31, C = 1 to 12, channel-wise radii sorted after the
    transform, 512 ligands, 70,000 molecules at 8^3, notrunc rows, presorted
-   input, padding without a mask, a res of 0.375, and a 20,000-atom
-   molecule above the shared-memory line): rows, weights, ranges and
-   permutation bit for bit, and each case launched twice, bit for bit.
+   input, padding without a mask, a res of 0.375, molecules of 20,000 and
+   65,536 atoms (the cap), 4,096 atoms in one Morton cell, and 8 complexes
+   of 468 atoms): rows, weights, ranges and permutation bit for bit, each
+   case launched twice, bit for bit, and each call one deposit_prep launch
+   and no other device kernel (torch.profiler).
    From then on ``prepare_plain`` raises if entered, and every reading of
    the launch counts fails the run unless deposit_prep launched as often
    as deposit_fwd.
@@ -72,9 +74,10 @@ exit code:
    SM x SMs)) and write rate (grid bytes / kernel time).  The headline
    ``forward_batch`` call and the training step are also timed on the host
    clock (median, minimum and maximum of 7).
-   prep_timing: deposit_prep at the headline batch's and the protein's
-   shapes (CUDA-graph replay and back to back) beside prepare_plain timed
-   the same ways, its bound (``prep_bound``) and the launch floor.
+   prep_timing: deposit_prep at the headline batch's shape, the protein's
+   at 48^3, 8 complexes at 48^3 and molecules of 20,000 and 65,536 atoms
+   (CUDA-graph replay and back to back) beside prepare_plain timed the
+   same ways, its bound (``prep_bound``) and the launch floor.
    prep_profile: one headline ``forward_batch`` and one ``forward_single``
    of the protein at 48^3, each with the plain preparation and with the
    kernel in turns: host ms (median of 7), the device kernels and copies
@@ -591,7 +594,10 @@ PREP_CASES = (
     ("prot_dim128_notrunc", "prot", 1, 1, 128, 0.5, "gaussian_notrunc", None, {"bucket"}),
     ("prot_dim48_presorted", "prot", 1, 1, 48, 0.5, "gaussian", None, {"bucket", "presorted"}),
     ("prot100_dim32_nomask", "prot100", 2, 1, 32, 0.5, "gaussian", None, {"nomask", "place"}),
-    ("prot20000_dim64_above_smem_line", "prot20000", 1, 1, 64, 0.5, "gaussian", None, {"place"}),
+    ("prot20000_dim64", "prot20000", 1, 1, 64, 0.5, "gaussian", None, {"place"}),
+    ("prot65536_dim64", "prot65536", 1, 1, 64, 0.5, "gaussian", None, {"place"}),
+    ("ties4096_dim48_placed", "tie4096", 2, 1, 48, 0.5, "gaussian", None, {"place"}),
+    ("complex8_dim48", "complex", 8, 8, 48, 0.5, "gaussian", None, {"bucket"}),
 )
 
 
@@ -600,10 +606,14 @@ def prep_molecule(name: str, dev):
     "complex" the 468-atom golden complex, "prot" the 3262-atom protein
     (all about their golden centers), "protN" N atoms of the protein (its
     first N, or for N above 3262 the protein repeated, each copy shifted by
-    0.37 A along (1, 1, 1)), "rand64" 64 atoms uniform in an 8-A box."""
+    0.37 A along (1, 1, 1)), "rand64" 64 atoms uniform in an 8-A box,
+    "tieN" N atoms at one point (one Morton key, ``prep_inputs`` adds no
+    jitter)."""
     import numpy as np
     import torch
 
+    if name.startswith("tie"):
+        return torch.tensor([[0.3, -0.2, 0.1]], device=dev).expand(int(name[3:]), 3).contiguous()
     if name == "rand64":
         return (torch.rand((64, 3), generator=torch.Generator().manual_seed(3)) * 4.0 - 2.0).to(dev)
     if name in ("lig", "complex"):
@@ -631,7 +641,8 @@ def prep_inputs(mol: str, b: int, c: int, opts, dev, seed: int):
     vb = small_atom_bucket(v) if "bucket" in opts else v
     coords = torch.zeros((b, vb, 3), device=dev)
     coords[:, :v] = xyz
-    coords[:, :v] += (torch.rand((b, v, 3), generator=gen) * 0.2 - 0.1).to(dev)  # each molecule its own jitter
+    if not mol.startswith("tie"):
+        coords[:, :v] += (torch.rand((b, v, 3), generator=gen) * 0.2 - 0.1).to(dev)  # each molecule its own jitter
     if mol == "rand64":
         coords = (torch.rand((b, vb, 3), generator=gen) * 4.0 - 2.0).to(dev)
     weights = (torch.rand((b, vb, c), generator=gen) < 0.6).float().to(dev) * torch.rand((b, vb, c),
@@ -660,8 +671,9 @@ def prep_bound(prepared, coords, weights, radii, mask, plan) -> tuple[float, str
     radii, mask, centers, the (B, 12) table) and the outputs written once
     (rows, weights, ranges, permutation).  Ops: about 25 for each (row
     tile, atom) pair of the plane ranges, 30 an atom for its placement,
-    key and row, and one a compare-exchange of the sort
-    (n2 / 2 x log n2 (log n2 + 1) / 2 for n2 words a molecule)."""
+    key and row, and for each sorted molecule of n padded atoms the
+    ceil(log2 n) x n comparisons that any comparison sort needs: the same
+    work whatever sort implements it."""
     b, v, _ = coords.shape
     n_bytes = sum(t.numel() * t.element_size() for t in (coords, weights, radii) + tuple(
         x for x in (mask,) if x is not None)) + b * 16 * 4
@@ -670,11 +682,27 @@ def prep_bound(prepared, coords, weights, radii, mask, plan) -> tuple[float, str
     vp, vo, nht = prepared.perm.shape[1], prepared.rows.shape[2], prepared.ranges.shape[1]
     ops = b * (nht * vo * 25 + vo * 30)
     if plan.sort and vp > 64:
-        lg = (vp - 1).bit_length()
-        ops += b * (1 << lg) // 2 * lg * (lg + 1) // 2
+        ops += b * (vp - 1).bit_length() * vp
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# PREP_CASES rows that prep_timing times beside the headline and the protein
+PREP_TIMED_CASES = ("complex8_dim48", "prot20000_dim64", "prot65536_dim64")
+
+
+def prep_case(name: str, dev):
+    """(inputs, plan) of the PREP_CASES row ``name``, with the seed
+    prep_vs_plain gives it; inputs: (coords, weights, radii, mask, centers,
+    Transforms)."""
+    from molvoxel_torch.ops import deposit
+
+    k = next(i for i, row in enumerate(PREP_CASES) if row[0] == name)
+    _, mol, b, c, dim, res, density, slab, opts = PREP_CASES[k]
+    coords, w, radii, mask, centers, transforms, _ = prep_inputs(mol, b, c, opts, dev, seed=k)
+    return ((coords, w, radii, mask, centers, deposit.transform_table(transforms, dev)),
+            prep_plan(density, dim, res, slab, opts))
 
 
 def prep_plan(density: str, dim: int, res: float, slab, opts):
@@ -688,11 +716,32 @@ def prep_plan(density: str, dim: int, res: float, slab, opts):
                             channelwise="cw" in opts)
 
 
+def device_kernels(fn, calls: int = 3) -> list:
+    """Names of the device kernels that ``calls`` calls of fn() ran
+    (torch.profiler; copies and sets left out).  A trace that holds no
+    device event at all is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [n for n in device if not n.startswith(("Memcpy", "Memset"))]
+        if device:
+            break
+    return names
+
+
 def phase_prep_vs_plain(dev, plain) -> list:
     """prep_vs_plain: deposit_prep against ``plain`` (``prepare_plain``) on
     the same raw inputs at every PREP_CASES shape: rows, weights, ranges and
-    permutation bit for bit, and two launches bit for bit.  Returns the
-    lines."""
+    permutation bit for bit, two launches bit for bit, and each call one
+    deposit_prep launch and no other device kernel.  Returns the lines."""
     import torch
 
     from molvoxel_torch.ops import deposit
@@ -702,10 +751,12 @@ def phase_prep_vs_plain(dev, plain) -> list:
         coords, w, radii, mask, centers, transforms, presorted = prep_inputs(mol, b, c, opts, dev, seed=k)
         plan = prep_plan(density, dim, res, slab, opts)
         table = deposit.transform_table(transforms, dev)
-        before = dict(deposit.launches)
+        before = deposit.launches["deposit_prep"]
         got = deposit.deposit_prep(coords, w, radii, mask, centers, table, plan)
         again = deposit.deposit_prep(coords, w, radii, mask, centers, table, plan)
-        n_launch = {name: (deposit.launches[name] - before[name]) // 2 for name in ("deposit_prep_keys", "deposit_prep")}
+        launched = deposit.launches["deposit_prep"]
+        kernels = device_kernels(lambda: deposit.deposit_prep(coords, w, radii, mask, centers, table, plan))
+        n_launch = (launched - before) / 2
         torch.cuda.synchronize()
         ref = plain(coords, w, radii, mask, centers, table, plan)
         fields = ("rows", "weights", "ranges", "perm")
@@ -713,11 +764,16 @@ def phase_prep_vs_plain(dev, plain) -> list:
         twice = all(same_bits(getattr(got, f), getattr(again, f)) for f in fields)
         diff = {f: float((getattr(got, f).double() - getattr(ref, f).double()).abs().max())
                 for f in fields if not equal[f] and getattr(got, f).shape == getattr(ref, f).shape}
-        ok = (all(equal.values()) and twice and got.dl == ref.dl and n_launch["deposit_prep"] == 1
-              and n_launch["deposit_prep_keys"] == int(plan.sort and got.perm.shape[1] > deposit.PREP_SORT_MAX))
+        one_kernel = len(kernels) == 3 and all("deposit_prep" in k for k in kernels)  # three calls profiled
+        ok = all(equal.values()) and twice and got.dl == ref.dl and n_launch == 1 and one_kernel
+        vp, vo = got.perm.shape[1], got.rows.shape[2]
+        launch = deposit.prep_launch(b, vp, vo, got.ranges.shape[1], plan.sort and vp > deposit.CHUNK,
+                                     deposit._WIDE_CLUSTERS[coords.device])
         line = {"phase": "prep_vs_plain", "case": name, "batch": b, "atoms": coords.shape[1],
-                "padded_atoms": got.perm.shape[1], "rows_shape": list(got.rows.shape),
-                "ranges_shape": list(got.ranges.shape), "launches_per_call": n_launch, "bitwise_equal": equal,
+                "padded_atoms": vp, "rows_shape": list(got.rows.shape), "ranges_shape": list(got.ranges.shape),
+                "launch": launch._asdict(), "launches_per_call": n_launch,
+                "device_kernels_of_3_calls": sorted(set(kernels)), "device_kernel_count_of_3_calls": len(kernels),
+                "bitwise_equal": equal,
                 "max_abs_diff": diff, "two_launches_bitwise_equal": twice, "ok": bool(ok)}
         emit(line)
         lines.append(line)
@@ -748,8 +804,11 @@ def prep_timing(case: str, inputs, plan, plain, launches: int, floor_ms: float) 
     ref = plain(*inputs, plan)
     bitwise = all(same_bits(getattr(got, f), getattr(ref, f)) for f in ("rows", "weights", "ranges", "perm"))
     b_ms, b_by = prep_bound(got, inputs[0], inputs[1], inputs[2], inputs[3], plan)
-    line = {"phase": "prep_timing", "case": case, "batch": inputs[0].shape[0], "atoms": inputs[0].shape[1],
-            "sorted": bool(plan.sort and got.perm.shape[1] > 64), "launches": launches,
+    b, vp, vo = inputs[0].shape[0], got.perm.shape[1], got.rows.shape[2]
+    sort = plan.sort and vp > deposit.CHUNK
+    launch = deposit.prep_launch(b, vp, vo, got.ranges.shape[1], sort, deposit._WIDE_CLUSTERS[inputs[0].device])
+    line = {"phase": "prep_timing", "case": case, "batch": b, "atoms": inputs[0].shape[1], "sorted": bool(sort),
+            "launch": launch._asdict(), "launches": launches,
             "kernel_ms": time_graph_ms(lambda: deposit.deposit_prep(*inputs, plan)),
             "kernel_ms_back_to_back": time_ms(lambda: deposit.deposit_prep(*inputs, plan)),
             "plain_ms": time_graph_ms(lambda: plain(*inputs, plan)),
@@ -1560,7 +1619,7 @@ def phase_examples(lib4096: Path, tmp: Path) -> dict:
     launches = {1: 0, 2: 0}
     (first, last, step_ms), seconds, n = run(lambda: torch_train_cnn.main(steps=60, device=DEVICE))
     launches[1] += n["deposit_fwd"]
-    ok = last < 0.8 * first and n == {"deposit_prep_keys": 0, "deposit_prep": 60, "deposit_fwd": 60, "deposit_bwd": 0}
+    ok = last < 0.8 * first and n == {"deposit_prep": 60, "deposit_fwd": 60, "deposit_bwd": 0}
     emit({"phase": "examples", "case": "train_cnn_60_steps_batch16_dim16_c2", "mse_first10": first,
           "mse_last10": last, "bar": "last < 0.8 x first", "step_ms_median_after_2": step_ms, "launches": n,
           "seconds": seconds, "ok": bool(ok)})
@@ -2518,6 +2577,9 @@ def main() -> int:
                               plain_prepare, 1, floor_ms),
                   prep_timing("forward_single_protein_dim48", prot_inputs,
                               deposit.PrepPlan(GridSpec(0.5, 48), True, 0.5), plain_prepare, 1, floor_ms)]
+    for case in PREP_TIMED_CASES:
+        inputs, plan = prep_case(case, dev)
+        prep_timed.append(prep_timing(case, inputs, plan, plain_prepare, 1, floor_ms))
     vox64 = create_voxelizer(device=DEVICE, resolution=0.5, dimension=64)
     vox48 = create_voxelizer(device=DEVICE, resolution=0.5, dimension=48)
     shared = [(deposit, "prepare_batch", "prepare_batch"), (deposit, "transform_table", "transform_table"),
@@ -2609,7 +2671,8 @@ def main() -> int:
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None, "timed_case": head["case"],
         "launch_floor_ms": floor_ms, "launches_by_phase": prep_by_phase,
-        "protein": {k: prep_timed[1][k] for k in ("case", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
+        "timed": [{k: ln[k] for k in ("case", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+                  for ln in prep_timed]}
     emit({"kernels": [prep_entry] + [
         {"name": f"{'deposit_bwd' if row == 4 else 'deposit_fwd'} (table row {row})", "route": "cuda",
          "source": f"molvoxel_torch/csrc/{'deposit_bwd' if row == 4 else 'deposit_fwd'}.cu",

@@ -54,8 +54,14 @@ MIN_LANES = 24  # ... or until a smaller brick would leave most of a warp idle (
 BWD_THREADS = 256  # threads of a backward block (kThreads in deposit_bwd.cu): 8 warps
 BWD_TARGET_WARPS = 16 * 132  # a backward launch spreads atoms over warps until it has this many: 16 per SM
 FAR = 1e3  # coordinate of padding atoms: far outside any grid (kFar in deposit_prep.cu)
-PREP_SORT_MAX = 16384  # atoms deposit_prep.cu sorts in one block's shared memory (kSortMax)
 PREP_MAX_THREADS = 1024  # threads of the largest preparation block (kMaxThreads)
+PREP_SEARCH_SHARE = 512  # atoms a block of a sorting cluster ranks by search, at most (kSearchShare)
+PREP_ITEMS = 8  # sort words a thread holds in the radix sort of larger shares (kItems): at most 8,192 a block
+PREP_SORT_THREADS = 256  # threads of a sorting block, at least (kSortThreads)
+PREP_MAX_CLUSTER = 16  # blocks of the largest sorting cluster (kMaxCluster); 8 is portable
+PREP_MIN_SHARE = 64  # a sorting molecule splits no further than this many padded atoms a block
+PREP_PAIR_THREADS = 16  # threads a block takes for each (row tile, chunk) pair of its plane ranges
+PREP_STAGE = 2048  # output atoms a preparation block keeps in shared memory at once (kStage)
 PREP_TARGET_BLOCKS = 132  # a small batch splits its molecules' chunks until a launch has this many blocks
 _PLAIN_BUDGET = 1 << 26  # elements of deposit_plain's (planes, H*W, chunk) temporary
 
@@ -69,7 +75,7 @@ NOTRUNC_EPS = 1e-9
 _F32_ZERO_LOG = 103.972  # -ln(2^-150): exp(-x) rounds to f32 +0.0 for x above this
 
 # Launches of each kernel, counted by its wrapper where it launches.
-launches = {"deposit_prep_keys": 0, "deposit_prep": 0, "deposit_fwd": 0, "deposit_bwd": 0}
+launches = {"deposit_prep": 0, "deposit_fwd": 0, "deposit_bwd": 0}
 
 
 def reset_launches():
@@ -570,17 +576,15 @@ def _kernel_lib(name: str):
             if tuple(fn() for fn in consts) != (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES):
                 raise RuntimeError("deposit_fwd.cu bricks disagree with molvoxel_torch/ops/deposit.py")
         elif name == "deposit_prep":
-            lib.deposit_prep.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 18 + [ctypes.c_float] * 9 + \
-                [ctypes.c_int, ctypes.c_void_p]
+            lib.deposit_prep.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 20 + [ctypes.c_float] * 9 + \
+                [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.deposit_prep.restype = ctypes.c_int
-            lib.deposit_prep_keys.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
-                [ctypes.c_void_p]
-            lib.deposit_prep_keys.restype = ctypes.c_int
-            consts = (lib.deposit_prep_chunk, lib.deposit_prep_sort_max, lib.deposit_prep_max_threads)
-            for fn in consts:
+            consts = (lib.deposit_prep_chunk, lib.deposit_prep_max_threads, lib.deposit_prep_items,
+                      lib.deposit_prep_stage, lib.deposit_prep_search_share)
+            for fn in consts + (lib.deposit_prep_setup,):
                 fn.argtypes = []
                 fn.restype = ctypes.c_int
-            if tuple(fn() for fn in consts) != (CHUNK, PREP_SORT_MAX, PREP_MAX_THREADS):
+            if tuple(fn() for fn in consts) != (CHUNK, PREP_MAX_THREADS, PREP_ITEMS, PREP_STAGE, PREP_SEARCH_SHARE):
                 raise RuntimeError("deposit_prep.cu constants disagree with molvoxel_torch/ops/deposit.py")
         else:
             lib.deposit_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
@@ -729,21 +733,85 @@ def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, 
     return grad_rows, grad_w
 
 
-def prep_split(b: int, nvc: int) -> tuple[int, int]:
-    """(blocks a molecule, 64-atom output chunks a block) of a preparation
-    launch: one block a molecule, or for a batch of fewer than
-    ``PREP_TARGET_BLOCKS`` molecules its chunks shared out over blocks
-    until the launch has about that many (one an SM of an H100 SXM)."""
-    want = min(nvc, max(1, -(-PREP_TARGET_BLOCKS // b)))
-    cpb = -(-nvc // want)
-    return -(-nvc // cpb), cpb
+class PrepLaunch(NamedTuple):
+    """A preparation launch: ``split`` blocks a molecule (one cluster when
+    it sorts), ``cpb`` 64-atom output chunks a block; when sorting, each
+    block sorts ``seg`` atoms and receives ``oseg`` sorted ranks (both 0
+    without a sort); ``threads`` a block and ``smem`` bytes of dynamic
+    shared memory a block."""
+
+    split: int
+    cpb: int
+    seg: int
+    oseg: int
+    threads: int
+    smem: int
 
 
-def prep_threads(atoms: int, sort_words: int) -> int:
-    """Threads of a preparation block: one an output atom of the block, or
-    one a compare-exchange of the sort (``sort_words`` / 2), 128 to 1024."""
-    need = max(atoms, sort_words // 2)
-    return min(PREP_MAX_THREADS, max(128, round_up(need, 32)))
+def prep_smem(sort: bool, vp: int, seg: int, oseg: int, split: int, threads: int, cpb: int) -> int:
+    """Dynamic shared memory of a preparation block (``smem_bytes`` in
+    deposit_prep.cu): x, y, dz^2, r2 of up to ``PREP_STAGE`` output atoms;
+    a block of a sorting cluster also its ``oseg``
+    sorted words and, reused by the staged atoms, the sort's scratch: for
+    shares of up to ``PREP_SEARCH_SHARE`` atoms every share (Vp), its own
+    words and their ranks in the share and the molecule; above, its ``seg``
+    words, every block's 256 digit counts, 256 offsets and 256 counts a
+    warp."""
+    chunks = min(cpb, PREP_STAGE // CHUNK)
+    stage = chunks * CHUNK * 16
+    if not sort:
+        return stage
+    if seg <= PREP_SEARCH_SHARE:
+        return oseg * 4 + max((vp + 3 * seg) * 4, stage)
+    return max(seg, oseg) * 4 + max((split + 1 + threads // 32) * 256 * 4, stage)
+
+
+def prep_launch(b: int, vp: int, vo: int, nht: int, sort: bool, wide: int = 0) -> PrepLaunch:
+    """The preparation's launch for B molecules of Vp padded atoms, Vo
+    output atoms and ``nht`` row tiles.  A batch of fewer than
+    ``PREP_TARGET_BLOCKS`` molecules shares each molecule's output chunks
+    over blocks until the launch has at most about that many (one an SM of
+    an H100 SXM).  A molecule that sorts is one cluster: at most 16 blocks
+    where the card runs ``wide`` clusters of 16 at once and B is no more
+    (else 8), and no more than give each ``PREP_MIN_SHARE`` atoms, but
+    enough that each sorts at most ``PREP_ITEMS`` atoms a thread of the
+    largest block.  Shares of up to ``PREP_SEARCH_SHARE`` atoms are ranked
+    by search, larger ones by digits.  Each block receives the ranks of its
+    own output atoms (channel-wise, those of its share).  Threads: one an output atom
+    of the block, one for ``PREP_ITEMS`` sort words, or
+    ``PREP_PAIR_THREADS`` for each (row tile, chunk) pair of its plane
+    ranges, whichever is most; 128 (256 when sorting) to 1024."""
+    nvc = vo // CHUNK
+    want = min(nvc, max(1, PREP_TARGET_BLOCKS // b))
+    if sort:
+        cap = PREP_MAX_CLUSTER if b <= wide else 8
+        split = max(min(want, cap, max(1, vp // PREP_MIN_SHARE)), -(-vp // (PREP_ITEMS * PREP_MAX_THREADS)))
+        cpb = -(-nvc // split)
+        seg = round_up(-(-vp // split), 32)
+        oseg = cpb * CHUNK if vo == vp else seg
+    else:
+        cpb = -(-nvc // want)
+        split, seg, oseg = -(-nvc // cpb), 0, 0
+    need = max(cpb * CHUNK, -(-seg // PREP_ITEMS), nht * min(cpb, PREP_STAGE // CHUNK) * PREP_PAIR_THREADS)
+    threads = min(PREP_MAX_THREADS, max(PREP_SORT_THREADS if sort else 128, round_up(need, 32)))
+    return PrepLaunch(split, cpb, seg, oseg, threads, prep_smem(sort, vp, seg, oseg, split, threads, cpb))
+
+
+_WIDE_CLUSTERS: dict[torch.device, int] = {}
+
+
+def _prep_wide_clusters(lib, dev: torch.device) -> int:
+    """How many 16-block clusters of the preparation ``dev`` runs at once (0:
+    none), asked of the library once a device (``deposit_prep_setup``, which
+    also readies the kernel there)."""
+    got = _WIDE_CLUSTERS.get(dev)
+    if got is None:
+        with torch.cuda.device(dev):
+            got = lib.deposit_prep_setup()
+        if got < 0:
+            raise RuntimeError(f"deposit_prep setup failed with cudaError {-got}")
+        _WIDE_CLUSTERS[dev] = got
+    return got
 
 
 def _check_prep_inputs(coords, weights, radii, mask, centers, table, plan: PrepPlan):
@@ -787,10 +855,9 @@ def deposit_prep(coords, weights, radii, mask, centers, transforms: Transforms, 
     """Prepare a deposit: the arguments and result of ``prepare_plain``.
 
     CUDA tensors launch ``csrc/deposit_prep.cu``'s preparation kernel once
-    (counted as ``deposit_prep``); above ``PREP_SORT_MAX`` atoms its keys
-    kernel runs first (counted as ``deposit_prep_keys``) and
-    ``torch.argsort`` sorts the keys it writes.  CPU tensors run
-    ``prepare_plain``.  Nothing here
+    (counted as ``deposit_prep``), at every size up to 65,536 atoms a
+    molecule: each molecule that sorts is one cluster of blocks
+    (``prep_launch``).  CPU tensors run ``prepare_plain``.  Nothing here
     synchronises the host.  Raises on anything the kernel does not take."""
     if coords.device.type == "cpu":
         return prepare_plain(coords, weights, radii, mask, centers, transforms, plan)
@@ -811,34 +878,21 @@ def deposit_prep(coords, weights, radii, mask, centers, transforms: Transforms, 
     lb, res = float(spec.lower_bound), float(spec.resolution)
     scale = ((1 << 5) - 1) / max(spec.width, 1e-6)  # morton_keys' scale
     lib = _kernel_lib("deposit_prep")
+    launch = prep_launch(b, vp, vo, nht, sort, _prep_wide_clusters(lib, dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    order = None
-    if sort and vp > PREP_SORT_MAX:
-        keys = torch.empty((b, vp), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.deposit_prep_keys(coords.data_ptr(), _ptr(mask), _ptr(centers), _ptr(table), keys.data_ptr(),
-                                       b, v, vp, int(transforms.rot), int(transforms.trans), int(plan.channelwise),
-                                       lb, scale, stream)
-        if rc != 0:
-            raise RuntimeError(f"deposit_prep keys launch failed with cudaError {rc}")
-        launches["deposit_prep_keys"] += 1
-        order = torch.argsort(keys, dim=1, stable=True).to(torch.int32)
     rows = torch.empty((b, 8, vo), dtype=torch.float32, device=dev)
     wt = torch.empty((b, c, vo), dtype=torch.float32, device=dev)
     ranges = torch.empty((b, nht, vo // CHUNK, 2), dtype=torch.int32, device=dev)
     perm = torch.empty((b, vp), dtype=torch.int32, device=dev)
-    words = 1 << (vp - 1).bit_length() if sort and order is None else 0
-    split, cpb = prep_split(b, vo // CHUNK)
     with torch.cuda.device(dev):
         rc = lib.deposit_prep(
             coords.data_ptr(), weights.data_ptr(), radii.data_ptr(), _ptr(mask), _ptr(centers), _ptr(table),
-            _ptr(order), rows.data_ptr(), wt.data_ptr(), ranges.data_ptr(), perm.data_ptr(),
-            b, v, vp, c, vo, dl, dim, ht, nht, split, cpb, radii_mode, int(transforms.rot), int(transforms.trans), int(sort),
-            int(plan.channelwise), int(plan.gaussian), int(plan.notrunc),
-            lb, float(spec.upper_bound), scale, res, float(np.float32(1.0) / np.float32(res)),
+            rows.data_ptr(), wt.data_ptr(), ranges.data_ptr(), perm.data_ptr(),
+            b, v, vp, c, vo, dl, dim, ht, nht, launch.split, launch.cpb, launch.seg, launch.oseg, radii_mode,
+            int(transforms.rot), int(transforms.trans), int(sort), int(plan.channelwise), int(plan.gaussian),
+            int(plan.notrunc), lb, float(spec.upper_bound), scale, res, float(np.float32(1.0) / np.float32(res)),
             float(np.float32(plan.d_offset) * np.float32(res)), float((ht - 1) * res),
-            -(0.5 / (plan.sigma * plan.sigma)), notrunc_factor(plan.sigma), prep_threads(cpb * CHUNK, words),
-            stream,
+            -(0.5 / (plan.sigma * plan.sigma)), notrunc_factor(plan.sigma), launch.threads, launch.smem, stream,
         )
     if rc != 0:
         raise RuntimeError(f"deposit_prep kernel launch failed with cudaError {rc}")

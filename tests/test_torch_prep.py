@@ -2,8 +2,9 @@
 of ``csrc/deposit_prep.cu``, and ``ops.autodiff.PrepareFunction``) against
 molvoxel_tpu on the CPU, on the same numpy inputs: the batch path's order
 (center, Morton sort, transform), the permutation, the atom rows, the plane
-ranges, the explicit backward against ``jax.vjp`` and against autograd, and a
-line-by-line model of the kernel's sort against ``torch.argsort``."""
+ranges, the explicit backward against ``jax.vjp`` and against autograd, a
+step-by-step model of the kernel's cluster sort against ``torch.argsort``,
+and its launch plan (``prep_launch``)."""
 
 import contextlib
 import re
@@ -24,6 +25,7 @@ from molvoxel_tpu.ops.batch import voxelize_batch as jax_voxelize_batch
 from molvoxel_tpu.ops.pallas_deposit import _plane_ranges_closed, _sort_atoms_spatially, voxelize_pallas_batch
 
 GRAD_BAR = 5e-3  # the gate's backward bar (tools/round_gate.py:230)
+H100_BLOCK_SMEM = 232_448  # shared memory a block of an H100 can use (227 KB)
 
 
 def _unit_quaternions(rng, b):
@@ -314,54 +316,150 @@ def _cu_constant(name: str) -> int:
     return int(eval(re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)))
 
 
-def _kernel_order(keys: np.ndarray, masked: np.ndarray) -> np.ndarray:
+def _radix_pass(words, shift, split, seg, threads):
+    """One digit pass of radix_sort over the cluster: block r holds the
+    words [r*seg, (r+1)*seg); warp w takes its words (w * items + k) * 32 +
+    lane round by round (k) and ranks each among the earlier lanes of its
+    digit in the round (__match_any_sync) plus the warp's running count of
+    that digit; each block's prefix of its warps' counts and its 256 counts;
+    the cluster's prefix of the counts (the words of lower digits in every
+    block, plus those of the same digit in lower blocks); each word to rank
+    base + warp prefix + its rank in the warp.  Returns the words in rank
+    order."""
+    vp = len(words)
+    items = -(-seg // threads)
+    lanes = np.arange(32)
+    counts = np.zeros((split, 256), np.int64)
+    placed = []  # per block: (its words, their digits, warp prefix + rank in the warp)
+    for r in range(split):
+        mine = words[r * seg:min((r + 1) * seg, vp)]
+        digit = (mine >> shift) & 0xFF
+        hist = np.zeros((threads // 32, 256), np.int64)
+        rank = np.zeros(len(mine), np.int64)
+        warp_of = np.zeros(len(mine), np.int64)
+        for w in range(threads // 32):
+            for k in range(items):
+                p = (w * items + k) * 32 + lanes
+                p = p[p < len(mine)]
+                d = digit[p]
+                before = ((d[None, :] == d[:, None]) & (p[None, :] < p[:, None])).sum(1)
+                rank[p] = hist[w, d] + before
+                warp_of[p] = w
+                hist[w] += np.bincount(d, minlength=256)
+        prefix = np.cumsum(hist, axis=0) - hist  # the warps' exclusive prefix, per digit
+        counts[r] = hist.sum(0)
+        placed.append((mine, digit, prefix[warp_of, digit] + rank))
+    total = counts.sum(0)
+    out = np.full(vp, -1, np.int64)
+    for r, (mine, digit, local) in enumerate(placed):
+        dest = (np.cumsum(total) - total + counts[:r].sum(0))[digit] + local
+        assert (out[dest] == -1).all()  # every rank is written once
+        out[dest] = mine
+    return out
+
+
+def _kernel_order(keys: np.ndarray, masked: np.ndarray, batch: int = 1, wide: int = 7) -> np.ndarray:
     """The order deposit_prep gives one molecule's (Vp,) keys, as the .cu
-    computes it: at most kSortMax atoms sort in shared memory as words key
-    << 16 | index (a masked atom's key kMaskedKey), padded with 0xffffffff to
-    a power of two, through a bitonic network (one compare-exchange per
-    thread per pass); above that, the wrapper's torch.argsort of the keys."""
+    computes it, step by step.  The molecule is one cluster of
+    ``prep_launch``'s split blocks; block r sorts the words of input atoms
+    [r*seg, (r+1)*seg): key16 << 16 | index, key16 the Morton key or
+    kMaskedKey.  Shares of up to PREP_SEARCH_SHARE atoms (search_sort):
+    each block ranks its words in its share by counting the words below
+    each, stores the share in that order into every block, and a word's
+    rank in the molecule is the sum over the shares of the words below it
+    (a binary search in each); larger shares (radix_sort): two digit
+    passes, the key's low byte and then its high one (``_radix_pass``)."""
     vp = len(keys)
-    if vp > _cu_constant("kSortMax"):
-        full = np.where(masked, 1 << 30, keys)
-        return torch.argsort(torch.as_tensor(full), stable=True).numpy()
-    n2 = 1 << (vp - 1).bit_length()
-    words = np.full(n2, 0xFFFFFFFF, np.uint64)
-    key16 = np.where(masked, _cu_constant("kMaskedKey"), keys).astype(np.uint64)
-    words[:vp] = (key16 << np.uint64(16)) | np.arange(vp, dtype=np.uint64)
-    p = np.arange(n2 // 2)
-    k = 2
-    while k <= n2:
-        j = k >> 1
-        while j > 0:
-            i = ((p & ~(j - 1)) << 1) | (p & (j - 1))
-            lo = i + j
-            x, y = words[i].copy(), words[lo].copy()
-            swap = (x > y) == ((i & k) == 0)
-            words[i] = np.where(swap, y, x)
-            words[lo] = np.where(swap, x, y)
-            j >>= 1
-        k <<= 1
-    return (words[:vp] & np.uint64(0xFFFF)).astype(np.int64)
+    launch = deposit.prep_launch(batch, vp, vp, 24, True, wide)
+    split, seg, threads = launch.split, launch.seg, launch.threads
+    assert split * seg >= vp and split * launch.oseg >= vp
+    key16 = np.where(masked, _cu_constant("kMaskedKey"), keys).astype(np.int64)
+    words = (key16 << 16) | np.arange(vp, dtype=np.int64)
+    if seg > deposit.PREP_SEARCH_SHARE:
+        for shift in (16, 24):
+            words = _radix_pass(words, shift, split, seg, threads)
+        return words & 0xFFFF
+    shares = []
+    for r in range(split):
+        mine = words[r * seg:min((r + 1) * seg, vp)]
+        in_share = (mine[None, :] < mine[:, None]).sum(1)  # the words below each, in its share
+        sorted_share = np.full(len(mine), -1, np.int64)
+        sorted_share[in_share] = mine
+        assert (sorted_share >= 0).all()  # the words are unique, so the ranks are a permutation
+        shares.append((mine, sorted_share))
+    out = np.full(vp, -1, np.int64)
+    for mine, _ in shares:
+        dest = sum(np.searchsorted(other, mine, side="left") for _, other in shares)
+        assert (out[dest] == -1).all()  # every rank is written once
+        out[dest] = mine
+    return out & 0xFFFF
 
 
-@pytest.mark.parametrize("vp,distinct", [(128, 3), (192, 40), (4096, 7), (4096, 32768), (16384, 50), (16448, 9)])
+@pytest.mark.parametrize("vp,distinct", [(128, 3), (192, 40), (4096, 7), (4096, 32768), (16384, 50), (16448, 9),
+                                         (65536, 300), (4096, 1)])
 def test_kernel_sort_model_equals_stable_argsort(rng, vp, distinct):
-    """Ties (few distinct keys), masked atoms and both sides of the
-    shared-memory line: the kernel's order is torch.argsort(stable=True)
-    of the Morton keys, masked atoms last."""
+    """Ties (few distinct keys; one key for every unmasked atom of the
+    4,096, so ties run across every block's share), masked atoms, shares
+    ranked by search (up to 8,192 atoms in 16 blocks, 4,096 in 8) and by
+    digits (above, up to the 65,536-atom cap), clusters of 16 and of the
+    portable 8, and a batch's smaller clusters: the kernel's order is
+    torch.argsort(stable=True) of the Morton keys, masked atoms last."""
     keys = rng.integers(0, distinct, size=vp).astype(np.int64) * (32768 // distinct)
     masked = rng.uniform(size=vp) < 0.1
     full = np.where(masked, 1 << 30, keys)
     want = torch.argsort(torch.as_tensor(full), stable=True).numpy()
-    np.testing.assert_array_equal(_kernel_order(keys, masked), want)
+    for batch, wide in ((1, 7), (1, 0), (64, 7)):
+        np.testing.assert_array_equal(_kernel_order(keys, masked, batch, wide), want)
 
 
 def test_kernel_constants_match_the_wrapper():
-    assert _cu_constant("kSortMax") == deposit.PREP_SORT_MAX
     assert _cu_constant("kChunk") == deposit.CHUNK
     assert _cu_constant("kMaxThreads") == deposit.PREP_MAX_THREADS
+    assert _cu_constant("kItems") == deposit.PREP_ITEMS
+    assert _cu_constant("kSearchShare") == deposit.PREP_SEARCH_SHARE
+    assert _cu_constant("kSortThreads") == deposit.PREP_SORT_THREADS
+    assert _cu_constant("kMaxCluster") == deposit.PREP_MAX_CLUSTER
+    assert _cu_constant("kStage") == deposit.PREP_STAGE
+    assert _cu_constant("kDigits") == 256  # an 8-bit digit: two passes cover the 16-bit key
     assert _cu_constant("kMaskedKey") == 1 << 15  # above every 15-bit Morton key
     assert "kFar = 1e3f" in (_build.CSRC / "deposit_prep.cu").read_text() and deposit.FAR == 1e3
+
+
+@pytest.mark.parametrize("v", [61, 65, 468, 3262, 16385, 20000, 65536])
+def test_prep_launch_plan_covers_every_chunk_and_rank(v):
+    """``prep_launch`` for B in {1, 8, 64, 70000}, one or four channels
+    (channel-wise too), with and without a sort, at both cluster caps:
+    every output chunk has exactly one block, every sorted rank one owner,
+    a cluster holds at most 16 blocks (the cap asked for), each block's
+    words fit its threads' registers, and its shared memory fits an H100
+    block (227 KB)."""
+    vp = -(-v // 64) * 64
+    for b in (1, 8, 64, 70_000):
+        for c, channelwise, nht in ((1, False, 24), (4, False, 2), (4, True, 64)):
+            vo = c * vp if channelwise else vp
+            nvc = vo // 64
+            for sort in {vp > 64, False}:
+                for wide in (0, 7):
+                    plan = deposit.prep_launch(b, vp, vo, nht, sort, wide)
+                    split, cpb, seg, oseg, threads, smem = plan
+                    chunks = np.zeros(nvc, np.int64)
+                    for s in range(split):
+                        chunks[s * cpb:(s + 1) * cpb] += 1
+                    assert (chunks == 1).all(), plan
+                    assert smem == deposit.prep_smem(sort, vp, seg, oseg, split, threads, cpb) <= H100_BLOCK_SMEM
+                    assert threads % 32 == 0 and threads <= deposit.PREP_MAX_THREADS and b * split < 2**31, plan
+                    if not sort:
+                        assert seg == oseg == 0 and split <= nvc and threads >= 128, plan
+                        continue
+                    for share in (seg, oseg):  # the atoms each block sorts, then the ranks each receives
+                        ranks = np.zeros(vp, np.int64)
+                        for r in range(split):
+                            ranks[r * share:(r + 1) * share] += 1
+                        assert (ranks == 1).all(), plan
+                    assert seg % 32 == 0 and seg <= threads * deposit.PREP_ITEMS, plan
+                    assert threads >= deposit.PREP_SORT_THREADS, plan
+                    assert split <= (deposit.PREP_MAX_CLUSTER if b <= wide else 8) and split <= 16, plan
+    assert deposit.prep_launch(64, 64, 64, 2, False) == (1, 1, 0, 0, 128, 64 * 16)  # the headline: a block each
 
 
 def test_kernel_sort_model_on_morton_keys_of_a_molecule(rng):
@@ -383,9 +481,10 @@ def test_kernel_sort_model_on_morton_keys_of_a_molecule(rng):
 
 def test_prep_wrapper_launches_once_below_the_line_and_twice_above(monkeypatch):
     """With a stand-in library: the arguments the wrapper passes (shapes,
-    ht, radii mode, sort), one launch counted below PREP_SORT_MAX atoms and
-    two above (the keys kernel under its own count, then the preparation
-    with the argsort's order)."""
+    ht, the launch of ``prep_launch`` at the card's cluster cap, radii mode,
+    sort) and one launch counted at every size, up to the 65,536-atom cap:
+    the shared-memory line of 16,384 atoms, and the keys launch and
+    torch.argsort above it, are gone."""
     calls = []
 
     class FakeLib:
@@ -393,17 +492,18 @@ def test_prep_wrapper_launches_once_below_the_line_and_twice_above(monkeypatch):
             calls.append(("prep", args))
             return 0
 
-        def deposit_prep_keys(self, *args):
-            calls.append(("keys", args))
-            return 0
+        def deposit_prep_setup(self):
+            calls.append(("setup", ()))
+            return 7
 
     monkeypatch.setattr(deposit, "_kernel_lib", lambda name: FakeLib())
+    monkeypatch.setattr(deposit, "_WIDE_CLUSTERS", {})
     monkeypatch.setattr(deposit, "_check_prep_inputs", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     spec = TSpec(0.5, 48)
-    for b, v, c, channelwise, want in ((64, 61, 4, False, 1), (1, 4096, 1, False, 1), (2, 61, 4, True, 1),
-                                       (1, 20000, 1, False, 2)):
+    for b, v, c, channelwise in ((64, 61, 4, False), (1, 4096, 1, False), (2, 61, 4, True), (1, 20000, 1, False),
+                                 (1, 65536, 1, False)):
         calls.clear()
         before = dict(deposit.launches)
         coords = torch.empty((b, v, 3), device="meta")
@@ -416,12 +516,12 @@ def test_prep_wrapper_launches_once_below_the_line_and_twice_above(monkeypatch):
         ht = deposit.brick_rows(b, c, 48, 48)[1]
         assert out.rows.shape == (b, 8, vo) and out.weights.shape == (b, c, vo) and out.perm.shape == (b, vp)
         assert out.ranges.shape == (b, -(-48 // ht), vo // 64, 2) and out.dl == 48
-        assert deposit.launches["deposit_prep"] == before["deposit_prep"] + 1
-        assert deposit.launches["deposit_prep_keys"] == before["deposit_prep_keys"] + want - 1
-        assert [kind for kind, _ in calls] == (["keys", "prep"] if want == 2 else ["prep"])
+        assert deposit.launches == dict(before, deposit_prep=before["deposit_prep"] + 1)
+        assert [kind for kind, _ in calls] == (["setup", "prep"] if v == 61 and not channelwise else ["prep"])
         args = calls[-1][1]
-        assert len(args) == 40
-        split, cpb = args[20:22]
-        assert args[11:20] == (b, v, vp, c, vo, 48, 48, ht, -(-48 // ht)) and args[22] == (2 if channelwise else 0)
-        assert (split - 1) * cpb < vo // 64 <= split * cpb and (split == 1 or b * split <= 2 * deposit.PREP_TARGET_BLOCKS)
-        assert args[25] == int(vp > 64) and args[-2] <= deposit.PREP_MAX_THREADS
+        assert len(args) == 42
+        launch = deposit.prep_launch(b, vp, vo, -(-48 // ht), vp > 64, 7)
+        assert args[10:19] == (b, v, vp, c, vo, 48, 48, ht, -(-48 // ht)) and args[23] == (2 if channelwise else 0)
+        assert args[19:23] == launch[:4] and args[-3:-1] == launch[4:] and args[26] == int(vp > 64)
+        assert launch.split <= 16 and (launch.split == 1 or b * launch.split <= 2 * deposit.PREP_TARGET_BLOCKS)
+    assert deposit._WIDE_CLUSTERS == {torch.device("meta"): 7}  # the card's 16-block clusters, asked once

@@ -30,14 +30,19 @@ exit code:
    protein of tests/goldens, depth slabs (one at planes 5..31, not a whole
    number of bricks), channel-wise radii, C = 1, 6, 9 and 12 (more than one
    channel group), a batch of 512 ligands at 32^3 and the notrunc
-   threshold row; every case is launched twice and the two grids must be
+   threshold rows (the ligand at 48^3 on the brick kernel; the protein at
+   128^3 in f32, bf16 and fp8, and a 64-plane depth slab of it at 256^3, on
+   the threshold-row kernel); every case is launched twice and the two grids must be
    bitwise equal.  An all-masked batch at the headline shape must give an
    exact zero grid; it is timed as it is and with its atoms parked off the
    grid (the kernel's store floor).  Then bwd_vs_plain: the backward kernel against
    ``deposit_bwd_plain`` on the same inputs and cotangent: the headline
    batch (f32 and bf16 cotangent, and C = 16), the protein at 48^3 and
    128^3, dims 20 and 40, the ligand at 256^3, a depth slab, channel-wise
-   radii (9 channels), binary density and the notrunc threshold row.  Bars:
+   radii (9 channels), binary density and the notrunc threshold rows on
+   the threshold-row kernel (the ligand at 48^3 and dim 20, a depth slab,
+   the protein at 48^3 and 128^3, the headline batch with an f32 and a
+   bf16 cotangent); one launch a call everywhere.  Bars:
    f32 1e-4 x max(1, gradient scale), since the kernel sums in another
    order; a bf16 cotangent is held at that bar against the plain version on
    the same bf16 values, and at 3e-2 x scale against the f32 cotangent.
@@ -102,7 +107,8 @@ exit code:
    ``VoxelizeLayer`` takes it, the protein at 48^3 through
    ``ops.voxelize.voxelize`` with radii gradients), gradients within 5e-3 x
    max(1, scale), the backward launch alone, its plain version and its
-   bound; the entry point itself must take the port's route.  The phase
+   bound; the entry point itself must take the port's route (on the
+   kernel: one forward launch and one backward launch).  The phase
    fails if the port's route is more than 10% slower than the other
    anywhere.
 6. convergence: ``examples/torch_pose_optimize.main`` through the kernel
@@ -180,10 +186,14 @@ exit code:
    and phases 10-13's; deposit_prep's every reading of the counts from
    the goldens on, by phase, and the run fails if the main paths launched
    it no time), error,
-   times and bound; rows 1, 2 and 4 carry a "notrunc" entry: a timed
-   notrunc_routing case with the kernel launch's ms, its plain version's ms
-   and its bound, the kernel route's ms, and the separable product's ms as
-   its library_ms.
+   times and bound; rows 1 and 2 carry a "notrunc" entry: a timed
+   notrunc_routing case of the brick kernel on threshold rows (a ligand
+   batch) with the kernel launch's ms, its plain version's ms and its bound,
+   the kernel route's ms, and the separable product's ms as its library_ms.  Two more entries are the threshold-row kernels: the
+   forward's (timed on the protein at 128^3) and the backward's (timed on
+   the training batch), each with notrunc_routing's launches of it (the
+   run fails if either was launched no time there) and every
+   notrunc_routing case it ran.
 Then the nvidia-smi line again, and last {"ok": true, "device": {...}}.
 
 Needs one CUDA card; imports nothing of JAX.
@@ -244,8 +254,9 @@ def launch_counts() -> dict:
     from molvoxel_torch.ops import deposit
 
     n = dict(deposit.launches)
-    if n["deposit_prep"] != n["deposit_fwd"]:
-        raise SystemExit(f"deposit_fwd launched {n['deposit_fwd']} times after {n['deposit_prep']} deposit_prep "
+    fwd = n["deposit_fwd"] + n["deposit_fwd_notrunc"]
+    if n["deposit_prep"] != fwd:
+        raise SystemExit(f"deposit_fwd launched {fwd} times after {n['deposit_prep']} deposit_prep "
                          "launches: a forward launch took inputs that the preparation kernel did not make")
     if n["deposit_prep"] < PREP_READ["since_reset"]:
         raise SystemExit("the launch counts were set to 0 past chip_smoke.reset_launches")
@@ -255,9 +266,11 @@ def launch_counts() -> dict:
 
 
 def fwd_launches() -> int:
-    """deposit_fwd's launches since the last ``reset_launches``, checked as
-    ``launch_counts`` checks them."""
-    return launch_counts()["deposit_fwd"]
+    """The forward wrapper's launches (either kernel of deposit_fwd.cu)
+    since the last ``reset_launches``, checked as ``launch_counts`` checks
+    them."""
+    n = launch_counts()
+    return n["deposit_fwd"] + n["deposit_fwd_notrunc"]
 
 
 def emit(obj):
@@ -1198,7 +1211,8 @@ def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, 
     reset_launches()
     got = routes["kernel"]()
     torch.cuda.synchronize()
-    launches = fwd_launches()
+    counts = launch_counts()
+    launches = counts["deposit_fwd"] + counts["deposit_fwd_notrunc"]
     ref = routes["separable"]().float()
     err = float((got.float() - ref).abs().max())
     tol = 2e-5 if odt == torch.float32 else 2**-7 * max(float(ref.abs().max()), 1.0)
@@ -1212,10 +1226,11 @@ def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, 
                                                             density_type="gaussian_notrunc", sigma=0.5, mask=mask,
                                                             d_offset=d0, d_count=d_count)
     launch_ms = time_graph_ms(lambda: deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=kdl, gaussian=gaussian,
-                                                          out_dtype=odt))
+                                                          out_dtype=odt, notrunc=True))
     plain_ms = time_ms(lambda: deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=kdl, gaussian=gaussian,
                                                      out_dtype=odt), reps=3, inner=1)
-    out = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=kdl, gaussian=gaussian, out_dtype=odt)
+    out = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=kdl, gaussian=gaussian, out_dtype=odt, notrunc=True)
+    plan = deposit.fwd_launch_info(b, c, vp, kdl, dim, True, odt, notrunc=True)
     b_ms, b_by = bound(rows, wt, ranges, out, spec, kdl, gaussian)
     pairs = cutoff_pairs(rows, wt.abs().amax(dim=1) > 0, spec, kdl)[0]
     del out, rows, wt, ranges
@@ -1232,7 +1247,8 @@ def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, 
             "kernel_bound_ms": b_ms, "kernel_bound_by": b_by, "threshold_pairs": pairs,
             "separable_flops": bmm + other_ops, "separable_bytes": n_bytes, "separable_bound_ms": sep_bound,
             "faster": min(ms, key=ms.get), "port_route": port, "port_over_other": ms[port] / ms[other],
-            "launches": launches, "max_abs_diff": err, "tol": tol}
+            "launches": launches, "kernel_launches": {k: counts[k] for k in ("deposit_fwd", "deposit_fwd_notrunc")},
+            "max_abs_diff": err, "tol": tol, "launch": plan}
     line["ok"] = bool(finite and err <= tol and launches == 1 and ms[port] <= 1.1 * ms[other])
     torch.cuda.empty_cache()
     return line
@@ -1296,9 +1312,12 @@ def notrunc_train_case(name, mol, b: int, dim: int, entry: str, dev) -> dict:
     rows, wt, _, kdl, gaussian = deposit.prepare_batch(coords, w, torch.ones(vp, device=dev), spec=spec,
                                                        density_type="gaussian_notrunc", sigma=0.5, mask=mask)
     ct_k = ct.reshape(b, c, dim, dim * dim)
-    bwd_ms = time_graph_ms(lambda: deposit.deposit_bwd(rows, wt, ct_k, spec=spec, dl=kdl, gaussian=gaussian))
+    bwd_ms = time_graph_ms(lambda: deposit.deposit_bwd(rows, wt, ct_k, spec=spec, dl=kdl, gaussian=gaussian,
+                                                       notrunc=True))
     bwd_plain_ms = time_ms(lambda: deposit.deposit_bwd_plain(rows, wt, ct_k, spec=spec, dl=kdl, gaussian=gaussian),
                            reps=3, inner=1)
+    bwd_plan = dict(deposit.bwd_launch_info(b, c, vp, True, ct_k.dtype, notrunc=True),
+                    entry=deposit.bwd_launch(b, vp, c, kdl, spec, True, ct_k.dtype, notrunc=True)[0])
     bwd_bound, bwd_by = bound_bwd(rows, wt, ct_k, wt.abs().amax(dim=1) > 0, spec, kdl, gaussian)
     del rows, wt
     other = "separable" if port == "kernel" else "kernel"
@@ -1306,14 +1325,15 @@ def notrunc_train_case(name, mol, b: int, dim: int, entry: str, dev) -> dict:
     got = step(entry_fn)
     torch.cuda.synchronize()
     launches = launch_counts()
-    taken = "kernel" if launches["deposit_fwd"] == 1 and launches["deposit_bwd"] == 1 else (
-        "separable" if not any(launches.values()) else "other")
+    n_fwd = launches["deposit_fwd"] + launches["deposit_fwd_notrunc"]
+    n_bwd = launches["deposit_bwd"] + launches["deposit_bwd_notrunc"]
+    taken = "kernel" if n_fwd == 1 and n_bwd == 1 else ("separable" if not any(launches.values()) else "other")
     entry_err = grad_err(got, grads[port])[0]
     line = {"phase": "notrunc_routing", "case": name, "entry": entry, "batch": b, "atoms": int(mask[0].sum()),
             "padded_atoms": vp, "channels": c, "dim": dim, "out_dtype": "float32",
             "kernel_fwd_bwd_ms": ms["kernel"], "separable_fwd_bwd_ms": ms["separable"],
             "kernel_bwd_launch_ms": bwd_ms, "kernel_bwd_plain_ms": bwd_plain_ms, "kernel_bwd_bound_ms": bwd_bound,
-            "kernel_bwd_bound_by": bwd_by,
+            "kernel_bwd_bound_by": bwd_by, "kernel_bwd_launch": bwd_plan,
             "faster": min(ms, key=ms.get), "port_route": port, "port_over_other": ms[port] / ms[other],
             "entry_route": taken, "entry_launches": launches, "grad_scale": scale, "max_abs_diff": err,
             "tol": 5e-3 * scale, "entry_vs_route_err": entry_err}
@@ -1336,18 +1356,26 @@ def phase_notrunc_routing(dev) -> dict:
     for name, mol, b, dim, res, slab, odt in NOTRUNC_CASES:
         lines[name] = notrunc_case(name, mols[mol], b, dim, res, slab, odt, dev)
         emit(lines[name])
-    launches = {row: sum(ln["launches"] for ln in lines.values() if ln["row"] == row) for row in (1, 2)}
-    launches[4] = 0
+    # each kernel's launches in the phase's driven calls: the brick kernel
+    # (table rows 1 and 2) and the threshold-row kernels
+    launches = {row: sum(ln["kernel_launches"]["deposit_fwd"] for ln in lines.values() if ln["row"] == row)
+                for row in (1, 2)}
+    launches["fwd_notrunc"] = sum(ln["kernel_launches"]["deposit_fwd_notrunc"] for ln in lines.values())
+    launches["bwd_notrunc"] = 0
     for name, mol, b, dim, entry in NOTRUNC_TRAIN_CASES:
         lines[name] = notrunc_train_case(name, mols[mol], b, dim, entry, dev)
         emit(lines[name])
-        launches[1] += lines[name]["entry_launches"]["deposit_fwd"]
-        launches[4] += lines[name]["entry_launches"]["deposit_bwd"]
+        n = lines[name]["entry_launches"]
+        launches[1] += n["deposit_fwd"]
+        launches["fwd_notrunc"] += n["deposit_fwd_notrunc"]
+        launches["bwd_notrunc"] += n["deposit_bwd_notrunc"]
     reset_launches()
     emit({"phase": "notrunc_routing_seconds", "total_s": time.perf_counter() - t_start})
     failed = [name for name, ln in lines.items() if not ln["ok"]]
     if failed:
         raise SystemExit(f"notrunc_routing failed: {failed}")
+    if not launches["fwd_notrunc"] or not launches["bwd_notrunc"]:
+        raise SystemExit(f"notrunc_routing: a threshold-row kernel was launched no time ({launches})")
 
     def entry(row, case, prefix, route_key, lib_key):
         ln = lines[case]
@@ -1356,9 +1384,48 @@ def phase_notrunc_routing(dev) -> dict:
                 "bound_ms": ln[f"kernel_{prefix}bound_ms"], "bound_by": ln[f"kernel_{prefix}bound_by"],
                 "port_route": ln["port_route"]}
 
-    return {1: entry(1, "lig61_b64_dim64_c4_bf16", "", "kernel_route_ms", "separable_ms"),
-            2: entry(2, "lig61_b4_dim256_res025_slab128_64_c4_f32", "", "kernel_route_ms", "separable_ms"),
-            4: entry(4, "train_layer_lig61_b64_dim64_c4_f32", "bwd_", "kernel_fwd_bwd_ms", "separable_fwd_bwd_ms")}
+    # rows 1 and 2: the brick kernel on the ligand batches (one chunk a
+    # molecule); the atom walk takes no threshold rows here, so row 4 has none
+    entries = {1: entry(1, "lig61_b64_dim64_c4_bf16", "", "kernel_route_ms", "separable_ms"),
+               2: entry(2, "lig61_b4_dim256_res025_slab128_64_c4_f32", "", "kernel_route_ms", "separable_ms")}
+    return entries, lines, launches
+
+
+def notrunc_entries(launches: dict, lines: dict, errs: dict) -> list:
+    """The kernels-line entries of the threshold-row kernels: the forward
+    (deposit_fwd_notrunc_kernel, gaussian_notrunc's launches of table rows
+    1 and 2 on molecules of more than one chunk) timed on the protein at
+    128^3, and the backward (deposit_bwd_notrunc_kernel, table row 4's)
+    timed on the training batch; launches are notrunc_routing's, and each
+    entry lists every notrunc_routing case that took it, with its bound,
+    plain version and separable product."""
+    def timed(prefix, route_key, lib_key, names):
+        return [{"case": n, "ms": lines[n][f"kernel_{prefix}launch_ms"], "plain_ms": lines[n][f"kernel_{prefix}plain_ms"],
+                 "bound_ms": lines[n][f"kernel_{prefix}bound_ms"], "bound_by": lines[n][f"kernel_{prefix}bound_by"],
+                 "route_ms": lines[n][route_key], "library_ms": lines[n][lib_key]} for n in names]
+
+    fwd = timed("", "kernel_route_ms", "separable_ms",
+                [c[0] for c in NOTRUNC_CASES if lines[c[0]]["kernel_launches"]["deposit_fwd_notrunc"]])
+    bwd = timed("bwd_", "kernel_fwd_bwd_ms", "separable_fwd_bwd_ms",
+                [c[0] for c in NOTRUNC_TRAIN_CASES if lines[c[0]]["kernel_bwd_launch"]["entry"] == "deposit_bwd_notrunc"])
+    head_f = next(t for t in fwd if t["case"] == "prot3262_b1_dim128_c1_f32")
+    head_b = next(t for t in bwd if t["case"] == "train_layer_lig61_b64_dim64_c4_f32")
+    return [
+        {"name": "deposit_fwd_notrunc_kernel (threshold rows of table rows 1 and 2: gaussian_notrunc, more than one "
+                 "chunk)", "route": "cuda", "source": "molvoxel_torch/csrc/deposit_fwd.cu",
+         "replaces": f"{REPLACES[1]} and {REPLACES[2]}, on threshold rows (pallas_deposit.py:65-86)",
+         "launches": launches["fwd_notrunc"], "max_abs_err": max(errs["fwd"]),
+         "ms": head_f["ms"], "plain_ms": head_f["plain_ms"], "bound_ms": head_f["bound_ms"],
+         "bound_by": head_f["bound_by"], "library_ms": head_f["library_ms"], "timed_case": head_f["case"],
+         "timed": fwd},
+        {"name": "deposit_bwd_notrunc_kernel (threshold rows of table row 4: gaussian_notrunc)", "route": "cuda",
+         "source": "molvoxel_torch/csrc/deposit_bwd.cu",
+         "replaces": f"{REPLACES[4]}, on threshold rows (pallas_deposit.py:65-86)",
+         "launches": launches["bwd_notrunc"], "max_abs_err": max(errs["bwd"]),
+         "ms": head_b["ms"], "plain_ms": head_b["plain_ms"], "bound_ms": head_b["bound_ms"],
+         "bound_by": head_b["bound_by"], "library_ms": head_b["library_ms"], "timed_case": head_b["case"],
+         "timed": bwd},
+    ]
 
 
 def phase_library(tmp: Path, dev):
@@ -1619,7 +1686,8 @@ def phase_examples(lib4096: Path, tmp: Path) -> dict:
     launches = {1: 0, 2: 0}
     (first, last, step_ms), seconds, n = run(lambda: torch_train_cnn.main(steps=60, device=DEVICE))
     launches[1] += n["deposit_fwd"]
-    ok = last < 0.8 * first and n == {"deposit_prep": 60, "deposit_fwd": 60, "deposit_bwd": 0}
+    ok = last < 0.8 * first and n == {"deposit_prep": 60, "deposit_fwd": 60, "deposit_bwd": 0,
+                                      "deposit_fwd_notrunc": 0, "deposit_bwd_notrunc": 0}
     emit({"phase": "examples", "case": "train_cnn_60_steps_batch16_dim16_c2", "mse_first10": first,
           "mse_last10": last, "bar": "last < 0.8 x first", "step_ms_median_after_2": step_ms, "launches": n,
           "seconds": seconds, "ok": bool(ok)})
@@ -2148,6 +2216,12 @@ def main() -> int:
         ("prot_dim128_gauss_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian", torch.float32, None, False),
         ("lig_dim48_notrunc_f32", lig_xyz, 4, 2, 48, 0.5, "gaussian_notrunc", torch.float32, None, False),
         ("prot_dim128_notrunc_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian_notrunc", torch.float32, None, False),
+        # threshold rows on their own kernel: the protein at 128^3 in every
+        # dtype, and a depth slab of it at 256^3 (as the sliced path cuts it)
+        ("prot_dim128_notrunc_bf16", prot_xyz, 1, 1, 128, 0.5, "gaussian_notrunc", torch.bfloat16, None, False),
+        ("prot_dim128_notrunc_fp8", prot_xyz, 1, 1, 128, 0.5, "gaussian_notrunc", torch.float8_e4m3fn, None, False),
+        ("prot_dim256_slab96_64_notrunc_f32", prot_xyz, 1, 1, 256, 0.5, "gaussian_notrunc", torch.float32,
+         (96, 64), False),
         # brick edges: ragged dims, a slab that is not a whole number of bricks
         ("lig_dim33_gauss_f32", lig_xyz, 4, 2, 33, 0.5, "gaussian", torch.float32, None, False),
         ("lig_dim33_binary_bf16", lig_xyz, 4, 2, 33, 0.5, "binary", torch.bfloat16, None, False),
@@ -2180,10 +2254,12 @@ def main() -> int:
         return (spec,) + deposit.prepare_batch(coords, w, radii, **kw)
 
     failed = []
+    notrunc_errs = {"fwd": [], "bwd": []}
     for name, xyz, c, b, dim, res, density, odt, slab, channelwise in cases:
         spec, rows, wt, ranges, dl, gaussian = prepared(xyz, c, b, dim, res, density, slab, channelwise)
-        got = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
-        again = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt)
+        nt = density == "gaussian_notrunc"
+        got = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt, notrunc=nt)
+        again = deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt, notrunc=nt)
         torch.cuda.synchronize()
         ref32 = deposit.deposit_plain(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian)
         ref = ref32.to(odt).float()
@@ -2191,9 +2267,14 @@ def main() -> int:
         tol = bar(odt, ref32)
         bitwise = same_bits(got, again)
         ok = bool(np.isfinite(err) and err <= tol and torch.isfinite(got.float()).all() and bitwise)
+        entry = deposit.fwd_launch(b, wt.shape[2], wt.shape[1], dl, spec, gaussian, odt, nt)[0]
+        plan = (deposit.notrunc_brick if entry == "deposit_fwd_notrunc" else deposit.brick)(b, wt.shape[1], dl, dim,
+                                                                                            odt)
         emit({"phase": "kernel_vs_plain", "case": name, "shape": list(got.shape), "out_dtype": str(odt),
               "max_abs_err": err, "tol": tol, "two_launches_bitwise_equal": bitwise,
-              "brick": deposit.brick(b, wt.shape[1], dl, dim, odt)._asdict(), "ok": ok})
+              "launch": entry, "plan": plan._asdict(), "ok": ok})
+        if nt and odt == torch.float32:
+            notrunc_errs["fwd"].append(err)
         if not ok:
             failed.append(name)
     # an all-masked batch at the headline shape: an exact zero grid.  Masked
@@ -2240,6 +2321,15 @@ def main() -> int:
         ("lig_dim40_binary_bf16", lig_xyz, 4, 2, 40, 0.5, "binary", torch.bfloat16, None, False),
         ("lig_dim48_notrunc_f32", lig_xyz, 4, 2, 48, 0.5, "gaussian_notrunc", torch.float32, None, False),
         ("prot_dim128_notrunc_f32", prot_xyz, 1, 1, 128, 0.5, "gaussian_notrunc", torch.float32, None, False),
+        # threshold rows on their own kernel (dim 20: a multiple of its 4-column groups)
+        ("prot_dim48_notrunc_f32", prot_xyz, 1, 1, 48, 0.5, "gaussian_notrunc", torch.float32, None, False),
+        ("headline_64lig_dim64_c4_notrunc_f32", lig_xyz, 4, 64, 64, 0.5, "gaussian_notrunc", torch.float32, None,
+         False),
+        ("headline_64lig_dim64_c4_notrunc_bf16", lig_xyz, 4, 64, 64, 0.5, "gaussian_notrunc", torch.bfloat16, None,
+         False),
+        ("lig_dim20_notrunc_f32", lig_xyz, 4, 2, 20, 0.5, "gaussian_notrunc", torch.float32, None, False),
+        ("lig_dim64_slab16_32_notrunc_f32", lig_xyz, 4, 2, 64, 0.5, "gaussian_notrunc", torch.float32, (16, 32),
+         False),
     ]
     ct_gen = torch.Generator(device=dev).manual_seed(0)
     bwd_errs = []
@@ -2247,14 +2337,19 @@ def main() -> int:
         spec, rows, wt, ranges, dl, gaussian = prepared(xyz, c, b, dim, res, density, slab, channelwise)
         ct32 = torch.randn((b, wt.shape[1], dl, dim * dim), generator=ct_gen, device=dev)
         ct = ct32.to(ct_dt)
-        got = deposit.deposit_bwd(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian)
-        again = deposit.deposit_bwd(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian)
+        nt = density == "gaussian_notrunc"
+        reset_launches()
+        got = deposit.deposit_bwd(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian, notrunc=nt)
+        n = launch_counts()
+        calls = n["deposit_bwd"] + n["deposit_bwd_notrunc"]
+        again = deposit.deposit_bwd(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian, notrunc=nt)
         torch.cuda.synchronize()
         err, scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct, spec=spec, dl=dl, gaussian=gaussian))
         tol = 1e-4 * scale
         bitwise = all(same_bits(g, a) for g, a in zip(got, again))
         line = {"phase": "bwd_vs_plain", "case": name, "ct_dtype": str(ct_dt), "grad_scale": scale,
-                "max_abs_err": err, "tol": tol, "two_launches_bitwise_equal": bitwise,
+                "max_abs_err": err, "tol": tol, "two_launches_bitwise_equal": bitwise, "launches_a_call": calls,
+                "launch": deposit.bwd_launch(b, wt.shape[2], wt.shape[1], dl, spec, gaussian, ct.dtype, nt)[0],
                 "warps_per_atom": deposit.bwd_warps_per_atom(b, wt.shape[2])}
         ok = err <= tol and bitwise
         if ct_dt != torch.float32:  # the low-precision lane against the f32 cotangent
@@ -2262,9 +2357,11 @@ def main() -> int:
                                                                            gaussian=gaussian))
             line.update(max_abs_err_vs_f32_ct=lane_err, tol_vs_f32_ct=3e-2 * lane_scale)
             ok = ok and lane_err <= 3e-2 * lane_scale
-        line["ok"] = bool(ok and all(torch.isfinite(t).all() for t in got))
+        line["ok"] = bool(ok and calls == 1 and all(torch.isfinite(t).all() for t in got))
         emit(line)
         bwd_errs.append(err)
+        if nt:
+            notrunc_errs["bwd"].append(err)
         if not line["ok"]:
             failed.append(name)
     # 70,000 one-chunk molecules at 8^3: more than a grid axis holds (65,535).
@@ -2541,7 +2638,8 @@ def main() -> int:
     # kernel 4 against its plain version and timed, on the last step's own inputs
     (rows, wt, ct), bkw = timer.last["deposit_bwd"]
     got = deposit.deposit_bwd(rows, wt, ct, **bkw)
-    kerr, scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct, **bkw))
+    pkw = {k: v for k, v in bkw.items() if k != "notrunc"}  # the plain version's arguments (exact cutoff here)
+    kerr, scale = grad_err(got, deposit.deposit_bwd_plain(rows, wt, ct, **pkw))
     # the layer's 64-atom molecules fill one chunk each and are not sorted, so the mask keeps its order
     b_ms, b_by = bound_bwd(rows, wt, ct, b_mask, bkw["spec"], bkw["dl"], bkw["gaussian"])
     info = deposit.bwd_launch_info(*wt.shape, bkw["gaussian"], ct.dtype)
@@ -2550,7 +2648,7 @@ def main() -> int:
             "tol": 1e-4 * scale, "kernel_ms": time_graph_ms(lambda: deposit.deposit_bwd(rows, wt, ct, **bkw)),
             "kernel_ms_back_to_back": time_ms(lambda: deposit.deposit_bwd(rows, wt, ct, **bkw)),
             "launch_floor_ms": launch_floor_ms(),
-            "plain_ms": time_ms(lambda: deposit.deposit_bwd_plain(rows, wt, ct, **bkw), reps=5, inner=1),
+            "plain_ms": time_ms(lambda: deposit.deposit_bwd_plain(rows, wt, ct, **pkw), reps=5, inner=1),
             "bound_ms": b_ms, "bound_by": b_by, **info}
     emit(line)
     if kerr > 1e-4 * scale:
@@ -2597,7 +2695,7 @@ def main() -> int:
 
     # 5b. gaussian_notrunc: the kernel route against the separable product
     PREP_READ["phase"] = "notrunc_routing"
-    notrunc = phase_notrunc_routing(dev)
+    notrunc, notrunc_lines, notrunc_launches = phase_notrunc_routing(dev)
 
     # 6. convergence: examples/torch_pose_optimize.py through the kernel backward
     import torch_pose_optimize
@@ -2683,7 +2781,7 @@ def main() -> int:
             if key in k},
          **({"notrunc": notrunc[row]} if row in notrunc else {})}
         for row, k in sorted(kernels.items())
-    ]})
+    ] + notrunc_entries(notrunc_launches, notrunc_lines, notrunc_errs)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -68,6 +68,25 @@
 //   sums take about C shuffles, not 5 C), then the wpa warps of an atom
 //   summed in warp order through shared memory; one thread writes each
 //   gradient element.  No atomics: two launches give identical bits.
+//
+// Threshold rows (gaussian_notrunc: a reach of about 3.2 r, about 1,100
+// voxels at r/res = 2 against 33 at the exact cutoff) take a second kernel,
+// deposit_bwd_notrunc_kernel.  There the walk above spends 80% of its time
+// on pairs, 32 a batch, each batch an owner search, two record reads, four
+// scattered 4-byte loads (one a channel) and the arithmetic; the bytes are
+// not what bounds it (a bf16 cotangent takes as long).  So the threshold
+// rows keep the walk's blocks, atoms, planes and rows, but:
+// - each row's w-span is cut into groups of 4 aligned columns and a lane
+//   takes a group: one 16-byte load a channel (8 bytes for bf16), so a
+//   batch covers 128 voxels for one owner search and one set of reads;
+// - (dz, ez) of every column of the atom's box, from its group-aligned
+//   start, come from the warp's table (two 16-byte reads a group), so a
+//   voxel costs no position arithmetic and no expf;
+// - sx and sy take the group's sum of Q f once (its voxels share dx, dy).
+// The exact predicate of deposit_fwd.cu decides each voxel; sums are f32
+// in a fixed order, so two launches give identical bits.  Rows must be
+// whole groups (W a multiple of 4) and the cotangent aligned for the vector
+// loads: the wrapper keeps the walk above otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -397,6 +416,250 @@ __global__ void __launch_bounds__(kThreads, kCT == 8 ? kMinBlocksWide : kMinBloc
   }
 }
 
+constexpr int kGroup = 4;  // consecutive w a threshold-row lane takes: one 16-byte load a channel (8 for bf16)
+static_assert(kGroup == 4, "the group's table reads are two float4");
+
+
+// Four cotangent values at p (16-byte aligned for f32, 8-byte for bf16), widened to f32.
+__device__ __forceinline__ float4 load_ct4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ float4 load_ct4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u), __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// The threshold-row walk (gaussian only): deposit_bwd_kernel's blocks,
+// atoms, planes and rows, but each row's w-span is cut into aligned groups
+// of kGroup columns and a lane takes a group: one vector load a channel,
+// then the exact predicate and the sums for each of its four voxels.  The
+// warp's table holds (dz, ez) for every column of the atom's box, rounded
+// out to whole groups, so a voxel costs no position arithmetic.  Rows need
+// W * element size to be a multiple of 16 bytes (8 for bf16): the wrapper
+// launches this kernel only then.
+template <int kCT, typename CtT>
+__global__ void __launch_bounds__(kThreads, kCT == 8 ? kMinBlocksWide : kMinBlocks)
+    deposit_bwd_notrunc_kernel(const Args a) {
+  const int lg_wpa = a.lg_wpa, wpa = 1 << lg_wpa, lg_apb = kLgWarps - lg_wpa, nch = a.channels, nred = nch + 4;
+  extern __shared__ float smem[];
+  float* s_w = smem;                       // [C][apb] the block's weights
+  float* s_red = s_w + (nch << lg_apb);    // [kWarps][C + 4] each warp's sums: grad_w, then sx, sy, sz, sd
+  __shared__ float s_atom[kRows][kWarps];
+  __shared__ float s_ex[kWarps][kTab], s_ey[kWarps][kTab];
+  __shared__ __align__(16) float2 s_dzez[kWarps][kTab];     // (dz, ez) of each column from the aligned box start
+  __shared__ int2 s_planes[kWarps][32];                      // a warp's planes with rows: plane, h - rho
+  __shared__ float4 s_rec[kWarps][32], s_rec2[kWarps][32];  // its rows with groups: dx, dy, dx^2, dy^2; th - dx^2, ex ey, gofs, -
+  __shared__ int s_voff[kWarps][32];                         // and their first voxel
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int items = a.vp >> lg_apb;
+  const int b = blockIdx.x / items;
+  const int v0 = (blockIdx.x - b * items) << lg_apb;
+  {
+    const float* a_row = a.atoms + static_cast<size_t>(b) * 8 * a.vp + v0;
+    const float* w_row = a.weights + static_cast<size_t>(b) * nch * a.vp + v0;
+#pragma unroll 1
+    for (int e = t; e < (kRows + nch) << lg_apb; e += kThreads) {
+      const int row = e >> lg_apb, j = e & ((1 << lg_apb) - 1);
+      if (row < kRows) {
+        s_atom[row][j] = a_row[static_cast<size_t>(row) * a.vp + j];
+      } else {
+        s_w[e - (kRows << lg_apb)] = w_row[static_cast<size_t>(row - kRows) * a.vp + j];
+      }
+    }
+  }
+  __syncthreads();
+
+  const int j = warp >> lg_wpa, part = warp & (wpa - 1);  // this warp's atom, and its share of the atom's rows
+  const float x = s_atom[0][j], y = s_atom[1][j], z = s_atom[2][j], th = s_atom[3][j], cf = s_atom[4][j];
+  const float res = a.res, inv_res = a.inv_res, hw = a.half_width;
+  const float reach = slack_reach(th);
+  int dlo, dhi, hlo, hhi, wlo, whi;
+  span(x, reach, inv_res, hw, a.dl, dlo, dhi);
+  span(y, reach, inv_res, hw, a.dim, hlo, hhi);
+  span(z, reach, inv_res, hw, a.dim, wlo, whi);
+  const int nd = (dhi >= dlo && hhi >= hlo && whi >= wlo) ? dhi - dlo + 1 : 0;  // planes of the box
+  // the factor tables: ex[i], ey[h] over the box, (dz, ez) over its columns
+  // from the group-aligned start (kTab entries each; beyond, the same
+  // values computed directly)
+  const int glo = wlo & ~(kGroup - 1);
+  const int ntab_x = min(max(dhi - dlo + 1, 0), kTab), ntab_y = min(max(hhi - hlo + 1, 0), kTab);
+  const int ntab = min(max((whi | (kGroup - 1)) + 1 - glo, 0), kTab);
+  for (int e = lane; e < max(max(ntab_x, ntab_y), ntab); e += 32) {
+    const float dx = __fsub_rn(axis_pos(dlo + e, res, hw), x), dy = __fsub_rn(axis_pos(hlo + e, res, hw), y);
+    const float dz = __fsub_rn(axis_pos(glo + e, res, hw), z);
+    const float dx2 = __fmul_rn(dx, dx), dy2 = __fmul_rn(dy, dy), dz2 = __fmul_rn(dz, dz);
+    s_ex[warp][e] = expf(dx2 * cf);
+    s_ey[warp][e] = expf(dy2 * cf);
+    s_dzez[warp][e] = make_float2(dz, expf(dz2 * cf));
+  }
+  __syncwarp();
+
+  const size_t plane = static_cast<size_t>(a.dim) * a.dim;
+  const size_t c_stride = static_cast<size_t>(a.dl) * plane;
+  const CtT* ct_b = static_cast<const CtT*>(a.ct) + static_cast<size_t>(b) * nch * c_stride;
+  float* red = s_red + warp * nred;
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f, sd = 0.0f;
+
+  for (int c0 = 0; c0 < nch; c0 += kCT) {
+    const int nc = min(kCT, nch - c0);  // channels of this group
+    const CtT* ct_g = ct_b + c0 * c_stride;
+    float wk[kCT], gw[kCT];
+#pragma unroll
+    for (int k = 0; k < kCT; ++k) {
+      wk[k] = k < nc ? s_w[((c0 + k) << lg_apb) + j] : 0.0f;
+      gw[k] = 0.0f;
+    }
+    for (int pc = 0; pc < nd; pc += 32) {
+      // lane L takes plane dlo + pc + L and its h-span (as deposit_bwd_kernel)
+      int hl = 0, hn = 0;
+      if (pc + lane < nd) {
+        const float dx = __fsub_rn(axis_pos(dlo + pc + lane, res, hw), x);
+        const float t_th = __fsub_rn(th, __fmul_rn(dx, dx));
+        if (t_th >= 0.0f) {
+          int hr;
+          span(y, slack_reach(t_th), inv_res, hw, a.dim, hl, hr);
+          hl = max(hl, hlo);
+          hn = max(min(hr, hhi) - hl + 1, 0);
+        }
+      }
+      int prows;
+      const int pincl = warp_scan(hn, lane, prows);
+      const bool phas = hn > 0;
+      const int prank = __popc(__ballot_sync(kFull, phas) & ((1u << lane) - 1u));
+      if (phas) s_planes[warp][prank] = make_int2(pc + lane, hl - (pincl - hn));
+      __syncwarp();
+      const int share = (prows + wpa - 1) >> lg_wpa;
+      const int rend = min(prows, (part + 1) * share);
+
+      for (int q0 = part * share; q0 < rend; q0 += 32) {
+        // lane L takes row q0 + L: its plane, terms and w-span, cut into groups
+        const int rho = q0 + lane;
+        const int2 plane_of = s_planes[warp][owner_rank(phas, pincl, q0, lane)];
+        const int pl = plane_of.x, h = rho + plane_of.y;
+        const float dx = __fsub_rn(axis_pos(dlo + pl, res, hw), x);
+        const float dx2 = __fmul_rn(dx, dx);
+        const float t_th = __fsub_rn(th, dx2);
+        const float dy = __fsub_rn(axis_pos(h, res, hw), y);
+        const float dy2 = __fmul_rn(dy, dy);
+        int ng = 0, g0 = 0, voff = 0;
+        if (rho < rend && dy2 <= t_th) {
+          int lo, hi;
+          span(z, slack_reach(__fsub_rn(t_th, dy2)), inv_res, hw, a.dim, lo, hi);
+          lo = max(lo, wlo);
+          hi = min(hi, whi);
+          if (hi >= lo) {
+            g0 = lo / kGroup;
+            ng = hi / kGroup - g0 + 1;
+          }
+          voff = ((dlo + pl) * a.dim + h) * a.dim;  // fits an int: checked at launch
+        }
+        int total;
+        const int incl = warp_scan(ng, lane, total);
+        const bool has = ng > 0;
+        const int slot = __popc(__ballot_sync(kFull, has) & ((1u << lane) - 1u));
+        if (has) {
+          const unsigned ex_at = static_cast<unsigned>(pl), ey_at = static_cast<unsigned>(h - hlo);
+          const float ex = ex_at < static_cast<unsigned>(ntab_x) ? s_ex[warp][ex_at] : expf(dx2 * cf);
+          const float ey = ey_at < static_cast<unsigned>(ntab_y) ? s_ey[warp][ey_at] : expf(dy2 * cf);
+          s_rec[warp][slot] = make_float4(dx, dy, dx2, dy2);
+          s_rec2[warp][slot] = make_float4(t_th, ex * ey, __int_as_float(g0 - (incl - ng)), 0.0f);
+          s_voff[warp][slot] = voff;
+        }
+        __syncwarp();
+
+        // one group a lane, in group order (two in flight measured slower:
+        // their registers spill)
+        for (int p0 = 0; p0 < total; p0 += 32) {
+          const int p = p0 + lane;
+          const int src = owner_rank(has, incl, p0, lane);
+          if (p < total) {
+            const float4 ra = s_rec[warp][src], rb = s_rec2[warp][src];
+            const int w0 = (p + __float_as_int(rb.z)) * kGroup;
+            const CtT* g_vox = ct_g + s_voff[warp][src] + w0;
+            float4 g[kCT];
+#pragma unroll
+            for (int c = 0; c < kCT; ++c) {
+              g[c] = c < nc ? load_ct4(g_vox) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              g_vox += c_stride;
+            }
+            // (dz, ez) of the group's columns: two 16-byte table reads (the
+            // group starts at a multiple of 4 from the table's start), or
+            // computed where the box is wider than the table
+            float dzs[kGroup], ezs[kGroup];
+            const int e0 = w0 - glo;
+            if (e0 + kGroup <= ntab) {
+              const float4 t01 = *reinterpret_cast<const float4*>(&s_dzez[warp][e0]);
+              const float4 t23 = *reinterpret_cast<const float4*>(&s_dzez[warp][e0 + 2]);
+              dzs[0] = t01.x, ezs[0] = t01.y, dzs[1] = t01.z, ezs[1] = t01.w;
+              dzs[2] = t23.x, ezs[2] = t23.y, dzs[3] = t23.z, ezs[3] = t23.w;
+            } else {
+#pragma unroll
+              for (int i = 0; i < kGroup; ++i) {
+                dzs[i] = __fsub_rn(axis_pos(w0 + i, res, hw), z);
+                ezs[i] = expf(__fmul_rn(dzs[i], dzs[i]) * cf);
+              }
+            }
+            float tsum = 0.0f;
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) {
+              const float dz2 = __fmul_rn(dzs[i], dzs[i]);
+              const float dyz2 = __fadd_rn(ra.w, dz2);
+              const float f = dyz2 <= rb.x ? rb.y * ezs[i] : 0.0f;  // 0 outside the threshold
+              float q = 0.0f;
+#pragma unroll
+              for (int c = 0; c < kCT; ++c) {
+                const float gi = i == 0 ? g[c].x : i == 1 ? g[c].y : i == 2 ? g[c].z : g[c].w;
+                gw[c] += gi * f;
+                q += gi * wk[c];
+              }
+              const float tq = q * f;
+              tsum += tq;
+              sz -= tq * dzs[i];
+              sd += tq * dyz2;
+            }
+            sx -= tsum * ra.x;
+            sy -= tsum * ra.y;
+            sd += tsum * ra.z;
+          }
+        }
+        __syncwarp();  // the records are read; the next rows may overwrite them
+      }
+      __syncwarp();  // the planes are read; the next planes may overwrite them
+    }
+    const float total = warp_sums<kCT>(gw, lane);
+    const int idx = lane / (32 / kCT);
+    if (lane % (32 / kCT) == 0 && c0 + idx < nch) red[c0 + idx] = total;
+  }
+  {
+    float sums[4] = {sx, sy, sz, sd};
+    const float total = warp_sums<4>(sums, lane);
+    if (lane % 8 == 0) red[nch + lane / 8] = total;
+  }
+  __syncthreads();
+
+  // one thread per gradient element, atoms fastest: the wpa warps of an atom summed in warp order
+#pragma unroll 1
+  for (int e = t; e < (nch + 8) << lg_apb; e += kThreads) {
+    const int val = e >> lg_apb, jj = e & ((1 << lg_apb) - 1);
+    const float* part_sums = s_red + (jj << lg_wpa) * nred;
+    if (val < nch) {
+      float sum = part_sums[val];
+      for (int p = 1; p < wpa; ++p) sum += part_sums[p * nred + val];
+      a.grad_w[(static_cast<size_t>(b) * nch + val) * a.vp + v0 + jj] = sum;
+    } else {
+      const int row = val - nch;
+      float g = 0.0f;
+      if (row < 3 || row == 4) {
+        const int col = nch + (row < 3 ? row : 3);
+        float sum = part_sums[col];
+        for (int p = 1; p < wpa; ++p) sum += part_sums[p * nred + col];
+        g = row < 3 ? 2.0f * s_atom[4][jj] * sum : sum;
+      }
+      a.grad_rows[(static_cast<size_t>(b) * 8 + row) * a.vp + v0 + jj] = g;
+    }
+  }
+}
+
 using Kernel = void (*)(Args);
 
 // The kernel for a channel group of 1, 4 or 8 (the smallest that holds C,
@@ -450,6 +713,28 @@ int make_args(Args* a, const void* atoms, const void* weights, const void* ct, v
   return 0;
 }
 
+// The threshold-row kernel for a channel group of 1, 4 or 8.
+template <typename CtT>
+Kernel pick_notrunc(int channels) {
+  if (channels <= 1) return deposit_bwd_notrunc_kernel<1, CtT>;
+  if (channels <= 4) return deposit_bwd_notrunc_kernel<4, CtT>;
+  return deposit_bwd_notrunc_kernel<8, CtT>;
+}
+
+Kernel pick_notrunc_kernel(int ct_kind, int channels) {
+  return ct_kind == 0 ? pick_notrunc<float>(channels) : pick_notrunc<__nv_bfloat16>(channels);
+}
+
+// The threshold-row launch's further conditions: rows of whole groups,
+// 16-byte (f32) or 8-byte (bf16) aligned.
+int check_notrunc(const void* ct, int dim, int ct_kind) {
+  if (dim % kGroup != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(ct) % (ct_kind == 0 ? 16 : 8) != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -491,5 +776,43 @@ int deposit_bwd_blocks(int batch, int vp, int channels, int gaussian, int ct_kin
                                                                        reinterpret_cast<const void*>(kernel),
                                                                        kThreads, smem));
 }
+
+// The threshold-row launch (gaussian only): deposit_bwd_notrunc_kernel,
+// with deposit_bwd's arguments; W must be a multiple of 4 and ct 16-byte
+// (f32) or 8-byte (bf16) aligned.  Returns the cudaError_t of the launch.
+int deposit_bwd_notrunc(const void* atoms, const void* weights, const void* ct, void* grad_rows, void* grad_w,
+                        int batch, int vp, int channels, int dl, int dim, float res, float half_width, int ct_kind,
+                        int warps_per_atom, void* stream) {
+  Args a;
+  long long blocks = 0;
+  size_t smem = 0;
+  int rc = make_args(&a, atoms, weights, ct, grad_rows, grad_w, batch, vp, channels, dl, dim, res, half_width,
+                     ct_kind, warps_per_atom, &blocks, &smem);
+  if (rc != 0 || (rc = check_notrunc(ct, dim, ct_kind)) != 0) return rc;
+  const Kernel kernel = pick_notrunc_kernel(ct_kind, channels);
+  if ((rc = allow_smem(kernel, smem)) != 0) return rc;
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(blocks)),
+                                           dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream)));
+}
+
+// The blocks of the threshold-row launch, and how many of them one SM holds
+// at once.  Returns a cudaError_t.
+int deposit_bwd_notrunc_blocks(int batch, int vp, int channels, int ct_kind, int warps_per_atom, long long* blocks,
+                               int* resident_per_sm) {
+  Args a;
+  size_t smem = 0;
+  int rc = make_args(&a, nullptr, nullptr, nullptr, nullptr, nullptr, batch, vp, channels, 1, 1, 1.0f, 0.0f, ct_kind,
+                     warps_per_atom, blocks, &smem);
+  if (rc != 0) return rc;
+  const Kernel kernel = pick_notrunc_kernel(ct_kind, channels);
+  if ((rc = allow_smem(kernel, smem)) != 0) return rc;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident_per_sm,
+                                                                       reinterpret_cast<const void*>(kernel),
+                                                                       kThreads, smem));
+}
+
+// Columns a threshold-row lane takes.
+int deposit_bwd_notrunc_group() { return kGroup; }
 
 }  // extern "C"

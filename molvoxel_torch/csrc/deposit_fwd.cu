@@ -66,6 +66,33 @@
 // - Stores: each run is written as one 16-byte store where W * element size
 //   is a multiple of 16; otherwise (dims 20 and 33, for example) by element.
 // - One writer per output element, no atomics, no TF32 (no tensor cores).
+//
+// Threshold rows (gaussian_notrunc: r2_thresh = r^2 * notrunc_factor, a
+// reach of about 3.2 r) of molecules of more than one chunk (proteins,
+// complexes) take a second kernel, deposit_fwd_notrunc_kernel.  At that
+// reach the brick above keeps every atom whose sphere reaches its slab
+// anywhere across the molecule, and a protein's blocks walk a dozen chunks
+// each, three barriers a chunk, for compares that mostly miss.  So:
+// - Sub-bricks: a warp owns 4 planes x 4 rows x 16 columns (32 for fp8);
+//   lane (dd, hh, half) owns one row's 8 (16) consecutive w, one or two
+//   16-byte stores a channel.  A block is bd x bh x bw such warps (the
+//   wrapper takes the first of a short list, 4 warps first, that gives
+//   the launch enough blocks; measured best on every protein shape).
+// - Culling twice, in 3-D.  The block's warps take the active chunks (the
+//   plane ranges of every range row the tile meets, a ballot mask each warp
+//   builds for itself) one a warp a round, load their 64 atoms straight from
+//   global memory and keep those whose threshold sphere reaches the block's
+//   box; one barrier a round puts them in a shared list in chunk, then atom
+//   order.  Each warp then keeps, from that list and in its order, the atoms
+//   that reach its own sub-brick, 32 at a time.
+// - Tables a warp: ex[4], ey[4], ez[16 or 32] of each kept atom over its
+//   sub-brick (the same expf of the same squares as the brick kernel), so
+//   a lane's atom costs the exact cutoff compares and one FMA a voxel.
+// - The same arithmetic and order as the brick kernel (the exact cutoff,
+//   m = ex * ey, w * m, one FMA with ez, chunk then atom order), so each
+//   voxel gets the brick kernel's bits; f32 sums, one cast at the store.
+// Single-chunk molecules (ligand batches) keep the brick kernel, whose slab
+// test already sees only that chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -415,6 +442,298 @@ __global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_kernel(const Args 
   }
 }
 
+constexpr int kNtSide = 4;        // planes and rows of a warp's sub-brick
+constexpr int kNtWarpCap = 32;    // atoms a warp deposits per fill of its factor tables
+
+struct NtArgs {
+  const float* atoms;
+  const float* weights;
+  const int* ranges;
+  void* out;
+  int vp, channels, dl, dim;
+  int nct, bd, bh, bw;  // channel groups; warps of a block along d, h and w
+  int ndt, nht, nwt;    // tiles along d, h and w
+  int hr, nhr;          // rows of a plane-range row (the brick kernel's ht), and range rows
+  float res, half_width;
+};
+
+// Inclusive prefix sum of v over the lanes, and the warp's total.
+__device__ __forceinline__ int warp_scan_incl(int v, int lane, int& total) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  total = __shfl_sync(0xffffffffu, v, 31);
+  return v;
+}
+
+// Whether an atom at (x, y, z) with r2_thresh r2 can reach the box
+// [lo, hi]; conservative: rounding can only keep an atom that reaches nothing.
+__device__ __forceinline__ bool reaches(float x, float y, float z, float r2, float3 lo, float3 hi) {
+  const float gx = gap(x, lo.x, hi.x), gy = gap(y, lo.y, hi.y), gz = gap(z, lo.z, hi.z);
+  return gx * gx + gy * gy + gz * gz <= r2 * 1.00001f + 1e-5f;
+}
+
+template <int kCT, typename OutT>
+__global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel(const NtArgs a) {
+  constexpr int kLW = sizeof(OutT) == 1 ? 16 : 8;  // consecutive w a lane owns: one or two 16-byte runs
+  constexpr int kCols = kRows + kCT;
+  constexpr int kPer = 2 * kNtSide + 2 * kLW;      // table entries of an atom: ex[4], ey[4], ez[2 kLW]
+  static_assert(kLW * kCT <= kAccMax, "accumulators exceed the budget");
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, nwarps = blockDim.x >> 5;
+  const int cap = nwarps * kChunk;  // atoms the block's kept list holds: a chunk a warp, one round
+  extern __shared__ __align__(16) float smem[];
+  float4* s_wat = reinterpret_cast<float4*>(smem);            // [warps][kNtWarpCap] x, y, z, r2
+  float* s_tab = smem + 4 * nwarps * kNtWarpCap;              // [warps][kNtWarpCap][kPer] factor tables
+  float* s_wcf = s_tab + nwarps * kNtWarpCap * kPer;          // [warps][kNtWarpCap] coef
+  float* s_ww = s_wcf + nwarps * kNtWarpCap;                  // [warps][kNtWarpCap][kCT] weights
+  float* s_blk = s_ww + nwarps * kNtWarpCap * kCT;            // [kCols][cap] the block's kept atoms
+  __shared__ int s_cnt[2][kMaxThreads / 32];
+  int item = blockIdx.x;
+  const int wi = item % a.nwt;
+  item /= a.nwt;
+  const int ti = item % a.nht;
+  item /= a.nht;
+  const int di = item % a.ndt;
+  item /= a.ndt;
+  const int c0 = (item % a.nct) * kCT;
+  const int b = item / a.nct;
+  const float res = a.res, hw = a.half_width;
+
+  // the block's tile and this warp's sub-brick of 4 planes x 4 rows x 2 kLW columns
+  const int d0 = di * kNtSide * a.bd, h0 = ti * kNtSide * a.bh, w0 = wi * 2 * kLW * a.bw;
+  const int d_last = min(d0 + kNtSide * a.bd, a.dl) - 1, h_last = min(h0 + kNtSide * a.bh, a.dim) - 1;
+  const int w_last = min(w0 + 2 * kLW * a.bw, a.dim) - 1;
+  const int wd = warp / (a.bh * a.bw), wh = (warp / a.bw) % a.bh, ww = warp % a.bw;
+  const int sd0 = d0 + kNtSide * wd, sh0 = h0 + kNtSide * wh, sw0 = w0 + 2 * kLW * ww;
+  const bool warp_live = sd0 < a.dl && sh0 < a.dim && sw0 < a.dim;
+  const float3 blo = make_float3(axis_pos(d0, res, hw), axis_pos(h0, res, hw), axis_pos(w0, res, hw));
+  const float3 bhi = make_float3(axis_pos(d_last, res, hw), axis_pos(h_last, res, hw), axis_pos(w_last, res, hw));
+  const float3 wlo = make_float3(axis_pos(sd0, res, hw), axis_pos(sh0, res, hw), axis_pos(sw0, res, hw));
+  const float3 whi = make_float3(axis_pos(min(sd0 + kNtSide, a.dl) - 1, res, hw),
+                                 axis_pos(min(sh0 + kNtSide, a.dim) - 1, res, hw),
+                                 axis_pos(min(sw0 + 2 * kLW, a.dim) - 1, res, hw));
+
+  // this lane's voxels: plane sd0 + dd, row sh0 + hh, columns wl .. wl + kLW - 1
+  const int dd = lane >> 3, hh = (lane >> 1) & 3, wg = lane & 1;
+  const int d = sd0 + dd, h = sh0 + hh, wl = sw0 + wg * kLW;
+  const float px = axis_pos(d, res, hw), py = axis_pos(h, res, hw);
+  float pz[kLW];
+#pragma unroll
+  for (int i = 0; i < kLW; ++i) pz[i] = axis_pos(wl + i, res, hw);
+
+  const int nvc = a.vp / kChunk;
+  const float* a_row = a.atoms + static_cast<size_t>(b) * 8 * a.vp;
+  const float* w_row = a.weights + static_cast<size_t>(b) * a.channels * a.vp;
+
+  // The active chunks, in chunk order, held by every warp at once (no
+  // barrier): lane L keeps the mask of chunks 32 L .. 32 L + 31 whose range,
+  // on any plane-range row the tile's rows meet, reaches the tile's planes.
+  unsigned my_mask = 0u;
+  {
+    const int2* r_row = reinterpret_cast<const int2*>(a.ranges) + static_cast<size_t>(b) * a.nhr * nvc;
+    const int r_lo = h0 / a.hr, r_hi = h_last / a.hr;
+    for (int seg = 0; seg * 32 < nvc; ++seg) {
+      const int vc = seg * 32 + lane;
+      bool act = false;
+      if (vc < nvc) {
+        for (int rr = r_lo; rr <= r_hi; ++rr) {
+          const int2 r = r_row[static_cast<size_t>(rr) * nvc + vc];
+          act = act || (r.y > d0 && r.x <= d_last);
+        }
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, act);
+      if (lane == seg) my_mask = m;
+    }
+  }
+  const int my_cnt = __popc(my_mask);
+  int n_act;
+  const int my_incl = warp_scan_incl(my_cnt, lane, n_act);
+  // chunk n of the active list (n < n_act), uniform across the warp
+  auto nth_chunk = [&](int n) {
+    const int seg = __popc(__ballot_sync(0xffffffffu, my_incl <= n));
+    const unsigned m = __shfl_sync(0xffffffffu, my_mask, seg);
+    const int before = __shfl_sync(0xffffffffu, my_incl - my_cnt, seg);
+    return seg * 32 + static_cast<int>(__fns(m, 0, n - before + 1));
+  };
+
+  float acc[kLW][kCT];
+#pragma unroll
+  for (int i = 0; i < kLW; ++i)
+#pragma unroll
+    for (int k = 0; k < kCT; ++k) acc[i][k] = 0.0f;
+
+  float4* wat = s_wat + warp * kNtWarpCap;
+  float* wcf = s_wcf + warp * kNtWarpCap;
+  float* wwt = s_ww + warp * kNtWarpCap * kCT;
+  float* tab = s_tab + warp * kNtWarpCap * kPer;
+
+  // Deposit the warp's list of n atoms: their factor tables over the
+  // sub-brick, then every lane's voxels, atom by atom in list order.
+  auto deposit_list = [&](int n) {
+    __syncwarp();  // the list is written
+    for (int e = lane; e < n * kPer; e += 32) {
+      const int k = e / kPer, i = e - k * kPer;
+      const float4 at = wat[k];
+      int idx;
+      float p;
+      if (i < kNtSide) {
+        idx = sd0 + i, p = at.x;
+      } else if (i < 2 * kNtSide) {
+        idx = sh0 + i - kNtSide, p = at.y;
+      } else {
+        idx = sw0 + i - 2 * kNtSide, p = at.z;
+      }
+      const float dv = __fsub_rn(axis_pos(idx, res, hw), p);
+      const float d2 = __fmul_rn(dv, dv);
+      // a factor beyond r2_thresh on its own axis is never used: the cutoff rejects it
+      tab[e] = d2 <= at.w ? expf(d2 * wcf[k]) : 0.0f;
+    }
+    __syncwarp();
+    for (int k = 0; k < n; ++k) {
+      const float4 at = wat[k];
+      const float dx = __fsub_rn(px, at.x);
+      const float dx2 = __fmul_rn(dx, dx);
+      const float th = __fsub_rn(at.w, dx2);
+      const float dy = __fsub_rn(py, at.y);
+      const float dy2 = __fmul_rn(dy, dy);
+      if (dy2 > th) continue;  // dyz2 >= dy2: the atom misses the lane's row
+      const float* tk = tab + k * kPer;
+      const float m = tk[dd] * tk[kNtSide + hh];
+      const float* ez = tk + 2 * kNtSide + wg * kLW;
+      float mk[kCT];
+#pragma unroll
+      for (int c = 0; c < kCT; ++c) mk[c] = wwt[k * kCT + c] * m;
+#pragma unroll
+      for (int i = 0; i < kLW; ++i) {
+        const float dz = __fsub_rn(pz[i], at.z);
+        const float dyz2 = __fadd_rn(dy2, __fmul_rn(dz, dz));
+        if (dyz2 <= th) {
+          const float e = ez[i];
+#pragma unroll
+          for (int c = 0; c < kCT; ++c) acc[i][c] = fmaf(mk[c], e, acc[i][c]);
+        }
+      }
+    }
+    __syncwarp();  // the tables and the list are read; the next list may overwrite them
+  };
+
+  // Process the block's kept list [0, nk): each warp takes, in list order,
+  // the atoms that reach its sub-brick, kNtWarpCap at a time.
+  auto process = [&](int nk) {
+    __syncthreads();  // the block's list is written
+    if (warp_live) {
+      int nw = 0;
+      for (int base = 0; base < nk; base += 32) {
+        const int j = base + lane;
+        bool keep = false;
+        if (j < nk) {
+          keep = reaches(s_blk[j], s_blk[cap + j], s_blk[2 * cap + j], s_blk[3 * cap + j], wlo,
+                         whi);
+        }
+        const unsigned bal = __ballot_sync(0xffffffffu, keep);
+        const int cnt = __popc(bal);
+        if (nw + cnt > kNtWarpCap) {  // uniform: deposit what the list holds first
+          deposit_list(nw);
+          nw = 0;
+        }
+        if (keep) {
+          const int slot = nw + __popc(bal & ((1u << lane) - 1u));
+          wat[slot] = make_float4(s_blk[j], s_blk[cap + j], s_blk[2 * cap + j], s_blk[3 * cap + j]);
+          wcf[slot] = s_blk[4 * cap + j];
+#pragma unroll
+          for (int c = 0; c < kCT; ++c) wwt[slot * kCT + c] = s_blk[(kRows + c) * cap + j];
+        }
+        nw += cnt;
+      }
+      if (nw > 0) deposit_list(nw);
+    }
+    __syncthreads();  // every warp has read the block's list; the next round may overwrite it
+  };
+
+  // Culling in rounds: warp w tests chunk r0 + w of the active list against
+  // the block's tile, two atoms a lane, straight from global memory; after
+  // one barrier each warp knows where its keepers go, so the block's list
+  // is in chunk order, then atom order.
+  int nkeep = 0, par = 0;
+  for (int r0 = 0; r0 < n_act; r0 += nwarps) {
+    float v[2][kCols];
+    bool keep_it[2] = {false, false};
+    if (r0 + warp < n_act) {
+      const size_t off = static_cast<size_t>(nth_chunk(r0 + warp)) * kChunk;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const size_t j = off + lane + 32 * half;
+#pragma unroll
+        for (int col = 0; col < kRows; ++col) v[half][col] = __ldg(a_row + static_cast<size_t>(col) * a.vp + j);
+        bool weighted = false;
+#pragma unroll
+        for (int k = 0; k < kCT; ++k) {
+          const int c = c0 + k;
+          v[half][kRows + k] = c < a.channels ? __ldg(w_row + static_cast<size_t>(c) * a.vp + j) : 0.0f;
+          weighted |= v[half][kRows + k] != 0.0f;
+        }
+        // an atom with no weight in these channels (masked, or another
+        // channel's virtual atom) adds nothing
+        keep_it[half] = weighted && reaches(v[half][0], v[half][1], v[half][2], v[half][3], blo, bhi);
+      }
+    }
+    const unsigned kb0 = __ballot_sync(0xffffffffu, keep_it[0]), kb1 = __ballot_sync(0xffffffffu, keep_it[1]);
+    if (lane == 0) s_cnt[par][warp] = __popc(kb0) + __popc(kb1);
+    __syncthreads();
+    int at = 0, total = 0;
+    for (int i = 0; i < nwarps; ++i) {
+      const int ci = s_cnt[par][i];
+      if (i < warp) at += ci;
+      total += ci;
+    }
+    par ^= 1;
+    if (nkeep + total > cap) {  // uniform: process what is kept first
+      process(nkeep);
+      nkeep = 0;
+    }
+    at += nkeep;
+    const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (keep_it[half]) {
+        const int slot = at + (half ? __popc(kb0) : 0) + __popc((half ? kb1 : kb0) & lower);
+#pragma unroll
+        for (int col = 0; col < kCols; ++col) s_blk[col * cap + slot] = v[half][col];
+      }
+    }
+    nkeep += total;
+  }
+  if (nkeep > 0) process(nkeep);
+
+  if (!warp_live || d >= a.dl || h >= a.dim || wl >= a.dim) return;
+  OutT* const out = static_cast<OutT*>(a.out);
+  const size_t plane = static_cast<size_t>(a.dim) * a.dim;
+  const bool vec = (a.dim * sizeof(OutT)) % kStoreBytes == 0;  // every row starts 16-byte aligned
+  constexpr int R = kStoreBytes / sizeof(OutT);
+#pragma unroll
+  for (int k = 0; k < kCT; ++k) {
+    if (c0 + k >= a.channels) continue;
+    OutT* dst = out + ((static_cast<size_t>(b) * a.channels + c0 + k) * a.dl + d) * plane +
+                static_cast<size_t>(h) * a.dim + wl;
+#pragma unroll
+    for (int r0 = 0; r0 < kLW; r0 += R) {
+      float v[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) v[i] = acc[r0 + i][k];
+      if (vec && wl + r0 + R <= a.dim) {
+        store_run<OutT, R>(dst + r0, v);
+      } else {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          if (wl + r0 + i < a.dim) dst[r0 + i] = cast_out<OutT>(v[i]);  // the ragged edge
+      }
+    }
+  }
+}
+
 using Kernel = void (*)(Args);
 
 // The kernel for kCT channels, or nullptr where R * kCT values exceed the
@@ -509,6 +828,90 @@ int make_args(Args* a, const void* atoms, const void* weights, const void* range
   return 0;
 }
 
+using NtKernel = void (*)(NtArgs);
+
+template <int kCT, typename OutT>
+NtKernel notrunc_kernel_or_null() {
+  constexpr int kLW = sizeof(OutT) == 1 ? 16 : 8;
+  if constexpr (kLW * kCT <= kAccMax) {
+    return deposit_fwd_notrunc_kernel<kCT, OutT>;
+  } else {
+    return nullptr;
+  }
+}
+
+template <typename OutT>
+NtKernel pick_notrunc(int kct) {
+  switch (kct) {
+    case 1:
+      return notrunc_kernel_or_null<1, OutT>();
+    case 2:
+      return notrunc_kernel_or_null<2, OutT>();
+    case 4:
+      return notrunc_kernel_or_null<4, OutT>();
+    default:
+      return nullptr;
+  }
+}
+
+NtKernel pick_notrunc_kernel(int out_kind, int kct) {
+  if (out_kind == 0) return pick_notrunc<float>(kct);
+  if (out_kind == 1) return pick_notrunc<__nv_bfloat16>(kct);
+  return pick_notrunc<__nv_fp8_storage_t>(kct);
+}
+
+// Columns of a warp's sub-brick: two lanes of 8 values (16 fp8).
+int notrunc_cols(int out_kind) { return out_kind == 2 ? 32 : 16; }
+
+size_t notrunc_smem_bytes(int kct, int warps, int out_kind) {
+  const size_t per = 2 * kNtSide + notrunc_cols(out_kind);  // table entries of an atom
+  return (static_cast<size_t>(warps) * kNtWarpCap * (4 + per + 1 + kct) +
+          static_cast<size_t>(kRows + kct) * warps * kChunk) * sizeof(float);
+}
+
+int allow_notrunc_smem(NtKernel kernel, size_t smem) {
+  static NtKernel seen[16];
+  static size_t opted[16];
+  if (smem <= 40 * 1024) return 0;
+  int i = 0;
+  while (i < 16 && seen[i] != nullptr && seen[i] != kernel) ++i;
+  if (i < 16 && seen[i] == kernel && opted[i] >= smem) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (i < 16) seen[i] = kernel, opted[i] = smem;
+  return 0;
+}
+
+// Fills the threshold-row launch arguments, or returns a cudaError_t.
+int make_notrunc_args(NtArgs* a, const void* atoms, const void* weights, const void* ranges, void* out, int batch,
+                      int vp, int channels, int dl, int dim, float res, float half_width, int out_kind, int kct,
+                      int bd, int bh, int bw, int hr, long long* blocks) {
+  if (batch <= 0 || vp <= 0 || vp % kChunk != 0 || channels <= 0 || dl <= 0 || dim <= 0 || out_kind < 0 ||
+      out_kind > 2 || bd < 1 || bh < 1 || bw < 1 || bd * bh * bw * 32 > kMaxThreads || hr < 1 || hr > dim) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (misaligned(atoms, kStoreBytes) || misaligned(weights, kStoreBytes) || misaligned(out, kStoreBytes) ||
+      misaligned(ranges, 8)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  a->atoms = static_cast<const float*>(atoms);
+  a->weights = static_cast<const float*>(weights);
+  a->ranges = static_cast<const int*>(ranges);
+  a->out = out;
+  a->vp = vp, a->channels = channels, a->dl = dl, a->dim = dim;
+  a->nct = (channels + kct - 1) / kct;
+  a->bd = bd, a->bh = bh, a->bw = bw;
+  a->ndt = (dl + kNtSide * bd - 1) / (kNtSide * bd);
+  a->nht = (dim + kNtSide * bh - 1) / (kNtSide * bh);
+  a->nwt = (dim + notrunc_cols(out_kind) * bw - 1) / (notrunc_cols(out_kind) * bw);
+  a->hr = hr, a->nhr = (dim + hr - 1) / hr;
+  a->res = res, a->half_width = half_width;
+  *blocks = static_cast<long long>(batch) * a->nct * a->ndt * a->nht * a->nwt;
+  if (*blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -556,6 +959,49 @@ int deposit_fwd_blocks(int batch, int vp, int channels, int dl, int dim, int gau
   if ((rc = allow_smem(kernel, smem)) != 0) return rc;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       resident_per_sm, reinterpret_cast<const void*>(kernel), threads, smem));
+}
+
+// Constants of the threshold-row launch: planes and rows of a warp's
+// sub-brick, and atoms a warp deposits per fill of its tables.
+int deposit_fwd_notrunc_side() { return kNtSide; }
+int deposit_fwd_notrunc_warp_cap() { return kNtWarpCap; }
+
+// The threshold-row launch (gaussian only): blocks of bd x bh x bw warps,
+// each warp 4 planes x 4 rows x 16 columns (32 fp8), kct channels (1, 2 or
+// 4; 1 or 2 for fp8); ranges at hr rows (the brick kernel's).  Returns the
+// cudaError_t of the launch (0 on success); nothing is synchronised.
+int deposit_fwd_notrunc(const void* atoms, const void* weights, const void* ranges, void* out, int batch, int vp,
+                        int channels, int dl, int dim, float res, float half_width, int out_kind, int kct, int bd,
+                        int bh, int bw, int hr, void* stream) {
+  NtArgs a;
+  long long blocks = 0;
+  int rc = make_notrunc_args(&a, atoms, weights, ranges, out, batch, vp, channels, dl, dim, res, half_width,
+                             out_kind, kct, bd, bh, bw, hr, &blocks);
+  if (rc != 0) return rc;
+  const NtKernel kernel = pick_notrunc_kernel(out_kind, kct);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = notrunc_smem_bytes(kct, bd * bh * bw, out_kind);
+  if ((rc = allow_notrunc_smem(kernel, smem)) != 0) return rc;
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(blocks)),
+                                           dim3(32 * bd * bh * bw), args, smem, static_cast<cudaStream_t>(stream)));
+}
+
+// The blocks of the threshold-row launch, and how many of them one SM holds
+// at once.  Returns a cudaError_t.
+int deposit_fwd_notrunc_blocks(int batch, int vp, int channels, int dl, int dim, int out_kind, int kct, int bd,
+                               int bh, int bw, int hr, long long* blocks, int* resident_per_sm) {
+  alignas(16) static float probe[4];
+  NtArgs a;
+  int rc = make_notrunc_args(&a, probe, probe, probe, probe, batch, vp, channels, dl, dim, 1.0f, 0.0f, out_kind,
+                             kct, bd, bh, bw, hr, blocks);
+  if (rc != 0) return rc;
+  const NtKernel kernel = pick_notrunc_kernel(out_kind, kct);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = notrunc_smem_bytes(kct, bd * bh * bw, out_kind);
+  if ((rc = allow_notrunc_smem(kernel, smem)) != 0) return rc;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      resident_per_sm, reinterpret_cast<const void*>(kernel), 32 * bd * bh * bw, smem));
 }
 
 }  // extern "C"

@@ -17,7 +17,9 @@ the two steps that have kernels:
   gradient on to the quaternions and translations it was made from
   (``deposit.transform_table``).
 - ``DepositFunction``: (atom rows, weights) -> grid, ``deposit_fwd``
-  forward and ``deposit_bwd`` backward.
+  forward and ``deposit_bwd`` backward, both told whether the rows are
+  threshold rows (``notrunc``: gaussian_notrunc), which take their own
+  launches.
 
 The gradient is the almost-everywhere one: the cutoff's boundary term is
 dropped, as ``jnp.where`` autodiff drops it in the JAX package, so the
@@ -140,21 +142,25 @@ class DepositFunction(torch.autograd.Function):
     """(rows (B, 8, Vp), weights (B, C, Vp)) -> grid (B, C, Dl, H*W)."""
 
     @staticmethod
-    def forward(ctx, rows, weights, ranges, spec, dl, gaussian, out_dtype):
+    def forward(ctx, rows, weights, ranges, spec, dl, gaussian, out_dtype, notrunc):
         ctx.save_for_backward(rows, weights)
-        ctx.geometry = (spec, dl, gaussian)
-        return deposit_fwd(rows, weights, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_dtype)
+        ctx.geometry = (spec, dl, gaussian, notrunc)
+        return deposit_fwd(rows, weights, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_dtype,
+                           notrunc=notrunc)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
         rows, weights = ctx.saved_tensors
-        spec, dl, gaussian = ctx.geometry
-        grad_rows, grad_w = deposit_bwd(rows, weights, grad.contiguous(), spec=spec, dl=dl, gaussian=gaussian)
-        return grad_rows, grad_w, None, None, None, None, None
+        spec, dl, gaussian, notrunc = ctx.geometry
+        grad_rows, grad_w = deposit_bwd(rows, weights, grad.contiguous(), spec=spec, dl=dl, gaussian=gaussian,
+                                        notrunc=notrunc)
+        return grad_rows, grad_w, None, None, None, None, None, None
 
 
 def deposit(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor, *, spec: GridSpec, dl: int,
-            gaussian: bool, out_dtype=torch.float32) -> torch.Tensor:
-    """``deposit_fwd``, differentiable in ``rows`` and ``weights``."""
-    return DepositFunction.apply(rows, weights, ranges, spec, dl, gaussian, out_dtype)
+            gaussian: bool, out_dtype=torch.float32, notrunc: bool = False) -> torch.Tensor:
+    """``deposit_fwd``, differentiable in ``rows`` and ``weights``;
+    ``notrunc``: threshold rows (gaussian_notrunc), which take the
+    threshold-row launches forward and backward."""
+    return DepositFunction.apply(rows, weights, ranges, spec, dl, gaussian, out_dtype, notrunc)

@@ -21,7 +21,10 @@ forward launch is one kernel, ``deposit_prep`` (its plain version,
 
 The Python side plans the forward kernel's bricks (``brick``: dt depth
 planes x ht whole h rows a block, chosen per grid) and the backward's warps
-per atom (``bwd_warps_per_atom``).  ``deposit_prep`` (atoms -> rows,
+per atom (``bwd_warps_per_atom``).  Threshold rows (gaussian_notrunc,
+``notrunc=True``) take their own launches: the forward's warp
+sub-bricks (``notrunc_brick``) for molecules of more than one chunk, and
+the backward's atom walk in groups of ``BWD_NOTRUNC_GROUP`` columns.  ``deposit_prep`` (atoms -> rows,
 weights, ranges, permutation), ``deposit_fwd`` (rows, weights -> grid) and
 ``deposit_bwd`` (cotangent grid -> gradients of rows and weights) launch
 their kernels on CUDA tensors and run ``prepare_plain`` / ``deposit_plain``
@@ -63,6 +66,11 @@ PREP_MIN_SHARE = 64  # a sorting molecule splits no further than this many padde
 PREP_PAIR_THREADS = 16  # threads a block takes for each (row tile, chunk) pair of its plane ranges
 PREP_STAGE = 2048  # output atoms a preparation block keeps in shared memory at once (kStage)
 PREP_TARGET_BLOCKS = 132  # a small batch splits its molecules' chunks until a launch has this many blocks
+NOTRUNC_SIDE = 4  # planes and rows of a threshold-row warp's sub-brick (kNtSide in deposit_fwd.cu)
+NOTRUNC_WARP_CAP = 32  # atoms a threshold-row warp deposits per fill of its tables (kNtWarpCap)
+NOTRUNC_BLOCK_WARPS = ((2, 2, 1), (1, 1, 2), (1, 1, 1))  # threshold-row blocks (warps along d, h, w), largest first
+NOTRUNC_TARGET_BLOCKS = 96  # a threshold-row launch takes the largest block that gives this many blocks
+BWD_NOTRUNC_GROUP = 4  # consecutive w a threshold-row backward lane takes (kGroup in deposit_bwd.cu)
 _PLAIN_BUDGET = 1 << 26  # elements of deposit_plain's (planes, H*W, chunk) temporary
 
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
@@ -75,7 +83,7 @@ NOTRUNC_EPS = 1e-9
 _F32_ZERO_LOG = 103.972  # -ln(2^-150): exp(-x) rounds to f32 +0.0 for x above this
 
 # Launches of each kernel, counted by its wrapper where it launches.
-launches = {"deposit_prep": 0, "deposit_fwd": 0, "deposit_bwd": 0}
+launches = {"deposit_prep": 0, "deposit_fwd": 0, "deposit_bwd": 0, "deposit_fwd_notrunc": 0, "deposit_bwd_notrunc": 0}
 
 
 def reset_launches():
@@ -178,7 +186,7 @@ def brick_rows(b: int, c: int, dl: int, dim: int) -> tuple[int, int]:
     over its atom chunks (what sets a protein's time); a brick of a few
     runs leaves its warp idle.  Depends on the shapes only, so the plane
     ranges (``plane_ranges`` at ``ht``) are the same whatever the output
-    dtype."""
+    dtype.  The threshold-row kernel reads these ranges too."""
     cap = None
     for run in (STORE_BYTES // 4, STORE_BYTES // 2, STORE_BYTES):
         nrun = -(-dim // run)
@@ -218,6 +226,56 @@ def brick(b: int, c: int, dl: int, dim: int, out_dtype=torch.float32) -> Brick:
     if passes * run * kct > ACC_MAX:
         raise ValueError(f"a {dim}-wide grid row exceeds the forward kernel's accumulators")
     return Brick(dt, ht, kct, run, threads, passes)
+
+
+def notrunc_tiles(vp: int) -> bool:
+    """Whether threshold rows of molecules of ``vp`` padded atoms take the
+    threshold-row launch: molecules of more than one chunk (proteins,
+    complexes).  A single chunk (ligand batches) keeps the brick launch,
+    whose slab test already sees only that chunk."""
+    return vp > CHUNK
+
+
+class NotruncBrick(NamedTuple):
+    """A threshold-row forward launch: blocks of bd x bh x bw warps, each
+    warp a sub-brick of ``NOTRUNC_SIDE`` planes x ``NOTRUNC_SIDE`` rows x
+    ``cols`` columns (each lane 4 x 4 x 2 lanes: a row's ``cols`` / 2
+    consecutive w), kct channels."""
+
+    bd: int
+    bh: int
+    bw: int
+    kct: int
+    cols: int
+    threads: int
+
+
+def notrunc_brick(b: int, c: int, dl: int, dim: int, out_dtype=torch.float32) -> NotruncBrick:
+    """The threshold-row forward launch for these shapes: the first block of
+    ``NOTRUNC_BLOCK_WARPS`` (4, 2 or 1 warps) that gives the launch
+    ``NOTRUNC_TARGET_BLOCKS`` blocks, else the last; channel groups of 1, 2
+    or 4 (1 or 2 for fp8), within the accumulators."""
+    out_dtype = out_torch_dtype(out_dtype)
+    lane_w = 16 if out_dtype.itemsize == 1 else 8
+    cols = 2 * lane_w
+    cap = ACC_MAX // lane_w
+    kct = 1 if c == 1 else 2 if c == 2 or cap == 2 else 4
+    groups = b * -(-c // kct)
+    for bd, bh, bw in NOTRUNC_BLOCK_WARPS:
+        blocks = groups * -(-dl // (NOTRUNC_SIDE * bd)) * -(-dim // (NOTRUNC_SIDE * bh)) * -(-dim // (cols * bw))
+        if blocks >= NOTRUNC_TARGET_BLOCKS:
+            break
+    return NotruncBrick(bd, bh, bw, kct, cols, 32 * bd * bh * bw)
+
+
+def notrunc_smem(p: NotruncBrick) -> int:
+    """Dynamic shared memory of a threshold-row block (deposit_fwd.cu's
+    notrunc_smem_bytes): each warp's list of ``NOTRUNC_WARP_CAP`` atoms
+    (x, y, z, r2; tables; coef; weights), and the block's kept list of a
+    chunk a warp."""
+    warps = p.threads // 32
+    per = 2 * NOTRUNC_SIDE + p.cols
+    return 4 * (warps * NOTRUNC_WARP_CAP * (4 + per + 1 + p.kct) + (5 + p.kct) * warps * CHUNK)
 
 
 def plane_ranges(coords_shifted: torch.Tensor, r2: torch.Tensor, spec: GridSpec, dl: int, ht: int) -> torch.Tensor:
@@ -573,7 +631,18 @@ def _kernel_lib(name: str):
             for fn in consts:
                 fn.argtypes = []
                 fn.restype = ctypes.c_int
-            if tuple(fn() for fn in consts) != (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES):
+            lib.deposit_fwd_notrunc.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+                [ctypes.c_float] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            lib.deposit_fwd_notrunc.restype = ctypes.c_int
+            lib.deposit_fwd_notrunc_blocks.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_longlong),
+                                                                              ctypes.POINTER(ctypes.c_int)]
+            lib.deposit_fwd_notrunc_blocks.restype = ctypes.c_int
+            consts += (lib.deposit_fwd_notrunc_side, lib.deposit_fwd_notrunc_warp_cap)
+            for fn in consts:
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
+            if tuple(fn() for fn in consts) != (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES, NOTRUNC_SIDE,
+                                                NOTRUNC_WARP_CAP):
                 raise RuntimeError("deposit_fwd.cu bricks disagree with molvoxel_torch/ops/deposit.py")
         elif name == "deposit_prep":
             lib.deposit_prep.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 20 + [ctypes.c_float] * 9 + \
@@ -593,9 +662,17 @@ def _kernel_lib(name: str):
             lib.deposit_bwd_blocks.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong),
                                                                      ctypes.POINTER(ctypes.c_int)]
             lib.deposit_bwd_blocks.restype = ctypes.c_int
-            lib.deposit_bwd_threads.argtypes = []
-            lib.deposit_bwd_threads.restype = ctypes.c_int
-            if lib.deposit_bwd_threads() != BWD_THREADS:
+            lib.deposit_bwd_notrunc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + \
+                [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            lib.deposit_bwd_notrunc.restype = ctypes.c_int
+            lib.deposit_bwd_notrunc_blocks.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                                                             ctypes.POINTER(ctypes.c_int)]
+            lib.deposit_bwd_notrunc_blocks.restype = ctypes.c_int
+            consts = (lib.deposit_bwd_threads, lib.deposit_bwd_notrunc_group)
+            for fn in consts:
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
+            if tuple(fn() for fn in consts) != (BWD_THREADS, BWD_NOTRUNC_GROUP):
                 raise RuntimeError("deposit_bwd.cu blocks disagree with molvoxel_torch/ops/deposit.py")
         lib._molvoxel_typed = True
     return lib
@@ -616,49 +693,76 @@ def _check_kernel_inputs(fn: str, rows, weights):
 
 
 def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor, *, spec: GridSpec, dl: int,
-                gaussian: bool, out_dtype=torch.float32) -> torch.Tensor:
+                gaussian: bool, out_dtype=torch.float32, notrunc: bool = False) -> torch.Tensor:
     """Deposit prepared atoms -> (B, C, Dl, H*W) of ``out_dtype``.
 
-    CUDA tensors launch ``csrc/deposit_fwd.cu``; CPU tensors run
-    ``deposit_plain``.  Raises on anything the kernel does not take."""
+    CUDA tensors launch ``csrc/deposit_fwd.cu``: the brick kernel, or with
+    ``notrunc`` (threshold rows, gaussian only) and molecules of more than
+    one chunk the threshold-row kernel (``notrunc_brick``), which reads the
+    same ranges.  CPU tensors run ``deposit_plain`` (the same function).
+    Raises on anything the kernel does not take."""
     out_dtype = out_torch_dtype(out_dtype)
+    if notrunc and not gaussian:
+        raise ValueError("threshold rows (notrunc) are gaussian")
     if rows.device.type == "cpu":
         return deposit_plain(rows, weights, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_dtype)
     _check_kernel_inputs("deposit_fwd", rows, weights)
     b, _, vp = rows.shape
     c = weights.shape[1]
     dim = spec.dimension
-    plan = brick(b, c, dl, dim, out_dtype)
-    nht = -(-dim // plan.ht)
+    nht = -(-dim // brick_rows(b, c, dl, dim)[1])
     if tuple(ranges.shape) != (b, nht, vp // CHUNK, 2):
         raise ValueError(f"ranges must be {(b, nht, vp // CHUNK, 2)}, got {tuple(ranges.shape)}")
     if ranges.dtype != torch.int32 or not ranges.is_contiguous() or ranges.device != rows.device:
         raise ValueError(f"ranges must be a contiguous torch.int32 tensor on {rows.device}")
     out = torch.empty((b, c, dl, dim * dim), dtype=out_dtype, device=rows.device)
-    lib = _kernel_lib("deposit_fwd")
+    entry, args = fwd_launch(b, vp, c, dl, spec, gaussian, out_dtype, notrunc)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     with torch.cuda.device(rows.device):
-        rc = lib.deposit_fwd(
-            rows.data_ptr(), weights.data_ptr(), ranges.data_ptr(), out.data_ptr(),
-            b, vp, c, dl, dim, float(spec.resolution), float(spec.width / 2.0),
-            int(gaussian), _OUT_KINDS[out_dtype], plan.kct, plan.threads, plan.dt, plan.ht, plan.passes, stream,
-        )
+        rc = getattr(_kernel_lib("deposit_fwd"), entry)(
+            rows.data_ptr(), weights.data_ptr(), ranges.data_ptr(), out.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"deposit_fwd kernel launch failed with cudaError {rc}")
-    launches["deposit_fwd"] += 1
+    launches[entry] += 1
     return out
 
 
-def fwd_launch_info(b: int, c: int, vp: int, dl: int, dim: int, gaussian: bool, out_dtype=torch.float32) -> dict:
-    """The forward launch for these shapes: its brick, its block count and
-    how many blocks one SM of the current card holds at once (so blocks /
-    (resident per SM x SMs) is the launch's waves).  Needs the card."""
+def fwd_launch(b: int, vp: int, c: int, dl: int, spec: GridSpec, gaussian: bool, out_dtype=torch.float32,
+               notrunc: bool = False) -> tuple[str, tuple]:
+    """The forward wrapper's launch: the C entry point of deposit_fwd.cu
+    and its arguments between the four tensors and the stream; the brick
+    kernel's (``brick``) or, with ``notrunc`` and more than one chunk, the
+    threshold-row kernel's (``notrunc_brick``)."""
+    dim = spec.dimension
+    kind = _OUT_KINDS[out_torch_dtype(out_dtype)]
+    geometry = (b, vp, c, dl, dim, float(spec.resolution), float(spec.width / 2.0))
+    if notrunc and notrunc_tiles(vp):
+        p = notrunc_brick(b, c, dl, dim, out_dtype)
+        hr = brick_rows(b, c, dl, dim)[1]  # the plane ranges' rows
+        return "deposit_fwd_notrunc", geometry + (kind, p.kct, p.bd, p.bh, p.bw, hr)
+    p = brick(b, c, dl, dim, out_dtype)
+    return "deposit_fwd", geometry + (int(gaussian), kind, p.kct, p.threads, p.dt, p.ht, p.passes)
+
+
+def fwd_launch_info(b: int, c: int, vp: int, dl: int, dim: int, gaussian: bool, out_dtype=torch.float32,
+                    notrunc: bool = False) -> dict:
+    """The forward launch for these shapes: its plan (``notrunc``: the
+    threshold-row launch's where it takes it), its block count and how many
+    blocks one SM of the current card holds at once (so blocks / (resident
+    per SM x SMs) is the launch's waves).  Needs the card."""
     out_dtype = out_torch_dtype(out_dtype)
-    plan = brick(b, c, dl, dim, out_dtype)
     blocks, resident = ctypes.c_longlong(0), ctypes.c_int(0)
-    rc = _kernel_lib("deposit_fwd").deposit_fwd_blocks(
-        b, vp, c, dl, dim, int(gaussian), _OUT_KINDS[out_dtype], plan.kct, plan.threads, plan.dt, plan.ht,
-        plan.passes, ctypes.byref(blocks), ctypes.byref(resident))
+    lib = _kernel_lib("deposit_fwd")
+    if notrunc and notrunc_tiles(vp):
+        plan = notrunc_brick(b, c, dl, dim, out_dtype)
+        rc = lib.deposit_fwd_notrunc_blocks(
+            b, vp, c, dl, dim, _OUT_KINDS[out_dtype], plan.kct, plan.bd, plan.bh, plan.bw,
+            brick_rows(b, c, dl, dim)[1], ctypes.byref(blocks), ctypes.byref(resident))
+    else:
+        plan = brick(b, c, dl, dim, out_dtype)
+        rc = lib.deposit_fwd_blocks(
+            b, vp, c, dl, dim, int(gaussian), _OUT_KINDS[out_dtype], plan.kct, plan.threads, plan.dt, plan.ht,
+            plan.passes, ctypes.byref(blocks), ctypes.byref(resident))
     if rc != 0:
         raise RuntimeError(f"deposit_fwd occupancy query failed with cudaError {rc}")
     sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
@@ -679,14 +783,20 @@ def bwd_warps_per_atom(b: int, vp: int) -> int:
     return wpa
 
 
-def bwd_launch_info(b: int, c: int, vp: int, gaussian: bool, ct_dtype=torch.float32) -> dict:
-    """The backward launch for these shapes: warps per atom, atoms per
-    block, blocks, how many blocks one SM of the current card holds at once,
-    and waves (blocks / (resident per SM x SMs)).  Needs the card."""
+def bwd_launch_info(b: int, c: int, vp: int, gaussian: bool, ct_dtype=torch.float32, notrunc: bool = False) -> dict:
+    """The backward launch for these shapes (``notrunc``: the threshold-row
+    kernel's): warps per atom, atoms per block, blocks, how many blocks one
+    SM of the current card holds at once, and waves (blocks / (resident per
+    SM x SMs)).  Needs the card."""
     wpa = bwd_warps_per_atom(b, vp)
     blocks, resident = ctypes.c_longlong(0), ctypes.c_int(0)
-    rc = _kernel_lib("deposit_bwd").deposit_bwd_blocks(b, vp, c, int(gaussian), _CT_KINDS[ct_dtype], wpa,
-                                                       ctypes.byref(blocks), ctypes.byref(resident))
+    lib = _kernel_lib("deposit_bwd")
+    if notrunc:
+        rc = lib.deposit_bwd_notrunc_blocks(b, vp, c, _CT_KINDS[ct_dtype], wpa, ctypes.byref(blocks),
+                                            ctypes.byref(resident))
+    else:
+        rc = lib.deposit_bwd_blocks(b, vp, c, int(gaussian), _CT_KINDS[ct_dtype], wpa, ctypes.byref(blocks),
+                                    ctypes.byref(resident))
     if rc != 0:
         raise RuntimeError(f"deposit_bwd occupancy query failed with cudaError {rc}")
     sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
@@ -695,7 +805,7 @@ def bwd_launch_info(b: int, c: int, vp: int, gaussian: bool, ct_dtype=torch.floa
 
 
 def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, spec: GridSpec, dl: int,
-                gaussian: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                gaussian: bool, notrunc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Gradients of a deposit at cotangent ``ct`` (B, C, Dl, H*W) ->
     (grad_rows (B, 8, Vp), grad_weights (B, C, Vp)), f32; see
     ``deposit_bwd_plain`` for the function.
@@ -703,8 +813,13 @@ def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, 
     CUDA tensors launch ``csrc/deposit_bwd.cu`` with
     ``bwd_warps_per_atom(B, Vp)`` warps an atom; it reads a float32 or a
     bfloat16 cotangent (an fp8 one is widened to bf16 first, exactly).
-    CPU tensors run ``deposit_bwd_plain``.  Raises on anything the kernel
-    does not take."""
+    With ``notrunc`` (threshold rows, gaussian only) the launch is the
+    threshold-row kernel, which takes each row in groups of
+    ``BWD_NOTRUNC_GROUP`` columns (``bwd_launch``: when W is a multiple of
+    it and the cotangent is aligned for its vector loads).  CPU tensors run
+    ``deposit_bwd_plain``.  Raises on anything the kernel does not take."""
+    if notrunc and not gaussian:
+        raise ValueError("threshold rows (notrunc) are gaussian")
     if rows.device.type == "cpu":
         return deposit_bwd_plain(rows, weights, ct, spec=spec, dl=dl, gaussian=gaussian)
     _check_kernel_inputs("deposit_bwd", rows, weights)
@@ -719,18 +834,31 @@ def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, 
         raise ValueError(f"cotangent must be a contiguous float32 or bfloat16 tensor on {rows.device}")
     grad_rows = torch.empty((b, 8, vp), dtype=torch.float32, device=rows.device)
     grad_w = torch.empty((b, c, vp), dtype=torch.float32, device=rows.device)
-    lib = _kernel_lib("deposit_bwd")
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    aligned = ct.data_ptr() % (4 * ct.element_size()) == 0  # the threshold-row kernel's vector loads
+    entry, args = bwd_launch(b, vp, c, dl, spec, gaussian, ct.dtype, notrunc and aligned)
     with torch.cuda.device(rows.device):
-        rc = lib.deposit_bwd(
-            rows.data_ptr(), weights.data_ptr(), ct.data_ptr(), grad_rows.data_ptr(), grad_w.data_ptr(),
-            b, vp, c, dl, dim, float(spec.resolution), float(spec.width / 2.0),
-            int(gaussian), _CT_KINDS[ct.dtype], bwd_warps_per_atom(b, vp), stream,
-        )
+        rc = getattr(_kernel_lib("deposit_bwd"), entry)(
+            rows.data_ptr(), weights.data_ptr(), ct.data_ptr(), grad_rows.data_ptr(), grad_w.data_ptr(), *args,
+            torch.cuda.current_stream(rows.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"deposit_bwd kernel launch failed with cudaError {rc}")
-    launches["deposit_bwd"] += 1
+    launches[entry] += 1
     return grad_rows, grad_w
+
+
+def bwd_launch(b: int, vp: int, c: int, dl: int, spec: GridSpec, gaussian: bool, ct_dtype=torch.float32,
+               notrunc: bool = False) -> tuple[str, tuple]:
+    """The backward wrapper's launch: the C entry point of deposit_bwd.cu
+    and its arguments between the tensors and the stream; the atom walk's,
+    or with ``notrunc`` and W a multiple of ``BWD_NOTRUNC_GROUP`` the
+    threshold-row kernel's (the same arguments, without ``gaussian``).
+    Other threshold rows keep the atom walk, which computes the same
+    function."""
+    geometry = (b, vp, c, dl, spec.dimension, float(spec.resolution), float(spec.width / 2.0))
+    kind, wpa = _CT_KINDS[ct_dtype], bwd_warps_per_atom(b, vp)
+    if notrunc and spec.dimension % BWD_NOTRUNC_GROUP == 0:
+        return "deposit_bwd_notrunc", geometry + (kind, wpa)
+    return "deposit_bwd", geometry + (int(gaussian), kind, wpa)
 
 
 class PrepLaunch(NamedTuple):
@@ -969,7 +1097,8 @@ def voxelize_deposit_batch(coords, weights, radii, *, spec: GridSpec, density_ty
         coords, weights, radii, spec=spec, density_type=density_type, sigma=sigma, mask=mask,
         d_offset=d_offset, d_count=d_count, presorted=presorted, centers=centers, transforms=transforms,
     )
-    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype))
+    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype),
+                  notrunc=density_type == "gaussian_notrunc")
     return out.reshape(b, c, dl, spec.dimension, spec.dimension)
 
 
@@ -1007,7 +1136,8 @@ def voxelize_deposit_batch_channelwise(coords, weights, radii, *, spec: GridSpec
         d_offset=d_offset, d_count=d_count, presorted=presorted, centers=centers, transforms=transforms,
         channelwise=True,
     )
-    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype))
+    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype),
+                  notrunc=density_type == "gaussian_notrunc")
     return out.reshape(b, c, dl, spec.dimension, spec.dimension)
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Diagnostics of molvoxel_torch's backward kernel on one card: where a warp's time goes, and build variants.
 
-    python3 tools/torch_bwd_diag.py phases              # per-warp phase times
-    python3 tools/torch_bwd_diag.py variants [name ...] # compile-time variants, timed in turns
+    python3 tools/torch_bwd_diag.py phases [--notrunc]  # per-warp phase times
+    python3 tools/torch_bwd_diag.py variants [--notrunc] [name ...]  # compile-time variants, timed in turns
 
 Both build patched copies of ``molvoxel_torch/csrc/deposit_bwd.cu`` into
 ``build/diag_bwd/`` (nvcc, as ``ops/_build.py`` does) and load them in place
@@ -23,7 +23,13 @@ once and timed by CUDA-graph replay in turns (A, B, ..., ..., B, A); one
 line per shape with the median of each, and each variant's gradients
 against the first's.
 Each variant's ptxas registers and spills come first.  With names, only
-those variants run.  Needs one CUDA card.
+those variants run; ``--notrunc`` runs them on gaussian_notrunc's rows
+through the threshold-row kernel (``deposit_bwd_notrunc_kernel``, which
+the ``nt_*`` variants cut into or point elsewhere: ``nt_loads_l1_hot``
+keeps every load in L1, ``nt_loads_half_channels`` loads half the
+channels, ``nt_loads_no_l1`` loads past L1), and ``phases --notrunc``
+times the atom walk on those rows.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -43,18 +49,47 @@ OUT = ROOT / "build" / "diag_bwd"
 BOUNDS = "constexpr int kMinBlocks = 4;"
 WIDE = "constexpr int kMinBlocksWide = 2;"
 PAIRS = "constexpr int kPairs = kCT == 4 ? 1 : 2;"
+NT_LOAD = "              g[c] = c < nc ? load_ct4(g_vox) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);"
+LOAD4 = ("__device__ __forceinline__ float4 load_ct4(const float* p) "
+         "{ return __ldg(reinterpret_cast<const float4*>(p)); }")
 VARIANTS = {
     "default": {},
     "3_per_sm": {BOUNDS: BOUNDS.replace("4", "3")},
     "wide_3_per_sm": {WIDE: WIDE.replace("2", "3")},
     "pairs_x2": {PAIRS: "constexpr int kPairs = kCT == 4 ? 2 : 4;"},
+    "pairs_4_2_per_sm": {PAIRS: "constexpr int kPairs = 4;", BOUNDS: BOUNDS.replace("4", "2"),
+                         WIDE: WIDE.replace("2", "1")},
+    "pairs_2_3_per_sm": {PAIRS: "constexpr int kPairs = 2;", BOUNDS: BOUNDS.replace("4", "3")},
+    "5_per_sm": {BOUNDS: BOUNDS.replace("4", "5"), WIDE: WIDE.replace("2", "3")},
+    "6_per_sm": {BOUNDS: BOUNDS.replace("4", "6"), WIDE: WIDE.replace("2", "3")},
     "blocks_128": {"constexpr int kLgWarps = 3;": "constexpr int kLgWarps = 2;"},
+    "blocks_512": {"constexpr int kLgWarps = 3;": "constexpr int kLgWarps = 4;", BOUNDS: BOUNDS.replace("4", "2"),
+                   WIDE: WIDE.replace("2", "1")},
     # ablations (wrong gradients, for timing only): no pair walk; no rows or
     # walk; no planes, rows or walk (staging, box, table, reductions, stores)
     "ablate_pairs": {"        for (int p0 = 0; p0 < total; p0 += 32 * kPairs) {":
                      "        for (int p0 = 0; p0 < 0; p0 += 32 * kPairs) {"},
     "ablate_rows": {"      for (int q0 = part * share; q0 < rend; q0 += 32) {": "      for (int q0 = 0; q0 < 0; q0 += 32) {"},
     "ablate_planes": {"    for (int pc = 0; pc < nd; pc += 32) {": "    for (int pc = 0; pc < 0; pc += 32) {"},
+    # the threshold-row kernel (deposit_bwd_notrunc_kernel; run them with
+    # --notrunc): no group walk; no cotangent loads (a constant in their
+    # place); no rows or walk
+    "nt_ablate_walk": {"__region__": "notrunc", "        for (int p0 = 0; p0 < total; p0 += 32) {":
+                       "        for (int p0 = 0; p0 < 0; p0 += 32) {"},
+    "nt_ablate_loads": {"__region__": "notrunc",
+                        NT_LOAD: "              g[c] = make_float4(__int_as_float(w0 & 0xffff), 1.0f, 0.5f, 0.25f);"},
+    "nt_ablate_rows": {"__region__": "notrunc", "      for (int q0 = part * share; q0 < rend; q0 += 32) {":
+                       "      for (int q0 = 0; q0 < 0; q0 += 32) {"},
+    # where its loads' time goes: every load from a few lines (always in
+    # L1); half the channels loaded; loads that skip L1
+    "nt_loads_l1_hot": {"__region__": "notrunc",
+                        NT_LOAD: NT_LOAD.replace("load_ct4(g_vox)", "load_ct4(ct_g + (w0 & 60))")},
+    "nt_loads_half_channels": {"__region__": "notrunc", NT_LOAD: NT_LOAD.replace(
+        "c < nc ? load_ct4(g_vox) : make_float4(0.0f, 0.0f, 0.0f, 0.0f)",
+        "c < nc && c % 2 == 0 ? load_ct4(g_vox) : g[c > 0 ? c - 1 : 0]")},
+    "nt_loads_no_l1": {"__region__": "notrunc", LOAD4: LOAD4.split("{")[0] + (
+        '{ float4 v; asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];" '
+        ': "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p)); return v; }')},
 }
 
 
@@ -73,12 +108,27 @@ PHASE_MARKS = (
 )
 
 
-def patched(subs: dict[str, str]) -> str:
+WALK = ("    deposit_bwd_kernel(const Args a) {", "constexpr int kGroup = 4;")
+NOTRUNC = ("    deposit_bwd_notrunc_kernel(const Args a) {", "using Kernel = void (*)(Args);")
+
+
+def patched(subs: dict[str, str], region=WALK) -> str:
+    """The source with each line of ``subs`` replaced: a line found once in
+    the file, or else once in ``region`` (the atom walk, deposit_bwd_kernel,
+    whose lines the threshold-row kernel repeats; ``subs["__region__"] ==
+    "notrunc"`` picks the threshold-row kernel instead)."""
     src = SOURCE.read_text()
+    subs = dict(subs)
+    if subs.pop("__region__", None) == "notrunc":
+        region = NOTRUNC
     for old, new in subs.items():
-        if src.count(old) != 1:
+        first, last = src.index(region[0]), src.index(region[1])
+        if src.count(old) == 1:
+            src = src.replace(old, new)
+        elif src[first:last].count(old) == 1:
+            src = src[:first] + src[first:last].replace(old, new) + src[last:]
+        else:
             raise SystemExit(f"torch_bwd_diag: the kernel source no longer has exactly one {old!r}")
-        src = src.replace(old, new)
     return src
 
 
@@ -122,7 +172,7 @@ def build(sources: dict[str, str]) -> dict[str, tuple[ctypes.CDLL, str]]:
     return libs
 
 
-def prepared(dev):
+def prepared(dev, density="gaussian"):
     import torch
 
     from molvoxel_torch.ops import deposit
@@ -130,12 +180,14 @@ def prepared(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for label, coords, w, radii, mask, spec, sigma, ct_dt in shapes(dev):
-        rows, wt, _, dl, gaussian = deposit.prepare_batch(coords, w, radii, spec=spec, mask=mask, sigma=sigma)
+        rows, wt, _, dl, gaussian = deposit.prepare_batch(coords, w, radii, spec=spec, mask=mask, sigma=sigma,
+                                                          density_type=density)
         ct = torch.randn((wt.shape[0], wt.shape[1], dl, spec.dimension ** 2), generator=gen, device=dev).to(ct_dt)
-        yield label, rows, wt, ct, dict(spec=spec, dl=dl, gaussian=gaussian)
+        yield label, rows, wt, ct, dict(spec=spec, dl=dl, gaussian=gaussian,
+                                        **({"notrunc": True} if density == "gaussian_notrunc" else {}))
 
 
-def phases(dev):
+def phases(dev, density="gaussian"):
     import numpy as np
     import torch
 
@@ -145,7 +197,8 @@ def phases(dev):
     lib, _ = build({"phases": phase_source()})["phases"]
     _build._loaded["deposit_bwd"] = lib
     lib.diag_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    for label, rows, wt, ct, kw in prepared(dev):
+    for label, rows, wt, ct, kw in prepared(dev, density):
+        kw.pop("notrunc", None)  # the marks are in the atom walk
         info = deposit.bwd_launch_info(*wt.shape, kw["gaussian"], ct.dtype)
         deposit.deposit_bwd(rows, wt, ct, **kw)
         torch.cuda.synchronize()
@@ -164,7 +217,7 @@ def phases(dev):
     _build._loaded.pop("deposit_bwd", None)
 
 
-def variants(dev, names):
+def variants(dev, names, density="gaussian"):
     from chip_smoke import emit, grad_err, time_graph_ms
     from molvoxel_torch.ops import _build, deposit
 
@@ -179,7 +232,7 @@ def variants(dev, names):
                          if "spill" in ln and not ln.strip().startswith("0 bytes stack")})
         emit({"phase": "variant_build", "variant": name, "registers": regs, "spills": spills})
     order = names + names[::-1]
-    for label, rows, wt, ct, kw in prepared(dev):
+    for label, rows, wt, ct, kw in prepared(dev, density):
         times = {name: [] for name in names}
         grads = {}
         for name in order:
@@ -198,7 +251,11 @@ def main() -> int:
     import torch
 
     mode, names = (sys.argv[1] if len(sys.argv) > 1 else ""), sys.argv[2:]
-    if mode not in ("phases", "variants") or any(n not in VARIANTS for n in names) or (mode == "phases" and names):
+    density = "gaussian"
+    if "--notrunc" in names:  # the atom walk on threshold rows (gaussian_notrunc)
+        names, density = [n for n in names if n != "--notrunc"], "gaussian_notrunc"
+    if mode not in ("phases", "variants") or any(n not in VARIANTS for n in names) or \
+            (mode != "variants" and names):
         print(__doc__, f"variants: {', '.join(VARIANTS)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -209,9 +266,9 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": nvidia_smi(), "device": torch.cuda.get_device_name(0)})
     dev = torch.device("cuda")
     if mode == "phases":
-        phases(dev)
+        phases(dev, density)
     else:
-        variants(dev, names or list(VARIANTS))
+        variants(dev, names or list(VARIANTS), density)
     return 0
 
 

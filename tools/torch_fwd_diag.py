@@ -3,6 +3,8 @@
 
     python3 tools/torch_fwd_diag.py phases     # per-block phase times
     python3 tools/torch_fwd_diag.py variants   # compile-time variants, timed in turns
+    python3 tools/torch_fwd_diag.py tile       # the threshold-row kernel's phases, in cycles
+    python3 tools/torch_fwd_diag.py tile_variants  # the threshold-row kernel with other constants, in turns
 
 Both build patched copies of ``molvoxel_torch/csrc/deposit_fwd.cu`` into
 ``build/diag/`` (nvcc, as ``ops/_build.py`` does) and load them in place of
@@ -21,6 +23,18 @@ per SM in the launch bounds, cp.async ring depth), each built once and timed
 by CUDA-graph replay in turns (A, B, ..., ..., B, A); one line per shape
 with the median of each.  Each line carries the variant's ptxas registers
 and spills first.
+
+``tile``: the threshold-row kernel (``deposit_fwd_notrunc_kernel``) at
+the shapes of ``chip_smoke.NOTRUNC_CASES`` that take it: thread 0 of every
+block (its warp's view) reads clock64 at its phase boundaries and adds the
+cycles to per-block sums: the range rows and active-chunk mask, the
+culling rounds (loads, box test, barrier, writes), the warp's list from the
+block's (with the barrier after it), the factor tables, the pairs, the
+store; with the active chunks and the block's kept atoms.  One line per
+shape: the means over blocks, the block with the longest total, and the
+launch.  ``tile_variants``: the kernel built with other constants (blocks
+an SM in its launch bounds, atoms a warp's list holds), timed in turns at
+those shapes.
 """
 
 from __future__ import annotations
@@ -85,6 +99,41 @@ def phase_source() -> str:
     subs[store] = (MARK % 4) + "\n" + store
     end = "          if (w0 + i < a.dim) dst[i] = cast_out<OutT>(v[i]);\n      }\n    }\n  }\n"
     subs[end] = end + (MARK % 5) + "\n  if (threadIdx.x == 0 && blockIdx.x < (1 << 17)) {\n" \
+        "    for (int q = 0; q < 8; ++q) g_prof[blockIdx.x * 8 + q] = prof[q];\n  }\n"
+    return patched(subs) + '\nextern "C" int diag_read(long long* h, int n) {\n' \
+        '  return static_cast<int>(cudaMemcpyFromSymbol(h, g_prof, n * sizeof(long long)));\n}\n'
+
+
+TILE_PHASES = ("list", "cull", "warp_lists", "tables", "pairs", "store")
+TILE_MARK = "if (threadIdx.x == 0) { const long long t_ = clock64(); prof[%d] += t_ - last_; last_ = t_; }"
+# (line of the threshold-row kernel, where its mark goes: "I" the sums' start, "before" or "after" the line)
+TILE_MARKS = (
+    ("  unsigned my_mask = 0u;", "I", None),
+    ("  float acc[kLW][kCT];", "before", (TILE_MARK % 0) + " prof[6] += n_act;"),
+    ("    __syncthreads();  // the block's list is written", "before", (TILE_MARK % 1) + " prof[7] += nk;"),
+    ("    __syncwarp();  // the list is written", "after", TILE_MARK % 2),
+    ("    for (int k = 0; k < n; ++k) {\n      const float4 at = wat[k];", "before", TILE_MARK % 3),
+    ("    __syncwarp();  // the tables and the list are read; the next list may overwrite them", "after",
+     TILE_MARK % 4),
+    ("    __syncthreads();  // every warp has read the block's list; the next round may overwrite it", "after",
+     TILE_MARK % 2),
+    ("  if (!warp_live || d >= a.dl || h >= a.dim || wl >= a.dim) return;", "before", TILE_MARK % 1),
+)
+
+
+def tile_phase_source() -> str:
+    subs = {}
+    for old, where, new in TILE_MARKS:
+        if where == "I":
+            subs[old] = f"  long long prof[8] = {{0, 0, 0, 0, 0, 0, 0, 0}};\n  long long last_ = clock64();\n{old}"
+        elif where == "before":
+            subs[old] = f"{new}\n{old}"
+        else:
+            subs[old] = f"{old}\n{new}"
+    subs["namespace {\n"] = "namespace {\n__device__ long long g_prof[1 << 20];\n"
+    end = ("          if (wl + r0 + i < a.dim) dst[r0 + i] = cast_out<OutT>(v[i]);  // the ragged edge\n"
+           "      }\n    }\n  }\n")
+    subs[end] = end + (TILE_MARK % 5) + "\n  if (threadIdx.x == 0 && blockIdx.x < (1 << 17)) {\n" \
         "    for (int q = 0; q < 8; ++q) g_prof[blockIdx.x * 8 + q] = prof[q];\n  }\n"
     return patched(subs) + '\nextern "C" int diag_read(long long* h, int n) {\n' \
         '  return static_cast<int>(cudaMemcpyFromSymbol(h, g_prof, n * sizeof(long long)));\n}\n'
@@ -156,6 +205,89 @@ def phases(dev):
               "median_block_total_ns": float(np.median(total)), "longest_block_total_ns": int(total.max())})
 
 
+TILE_BOUNDS = "__launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel"
+TILE_VARIANTS = {
+    "code": {},
+    "min_blocks_2": {TILE_BOUNDS: TILE_BOUNDS.replace("3)", "2)")},
+    "min_blocks_4": {TILE_BOUNDS: TILE_BOUNDS.replace("3)", "4)")},
+}
+
+
+def tile_cases(dev):
+    """(name, spec, out dtype, prepare) of the NOTRUNC_CASES that take the tiles."""
+    import torch
+
+    from chip_smoke import NOTRUNC_CASES, notrunc_inputs, notrunc_molecules
+    from molvoxel_torch.core.config import GridSpec
+    from molvoxel_torch.ops import deposit
+
+    mols = notrunc_molecules()
+    for name, mol, b, dim, res, slab, out_dtype in NOTRUNC_CASES:
+        coords, w, mask = notrunc_inputs(mols[mol], b, dev)
+        if not deposit.notrunc_tiles(w.shape[1]):
+            continue
+        spec = GridSpec(res, dim)
+        d0, d_count = (0, None) if slab is None else slab
+
+        def prep(coords=coords, w=w, mask=mask, spec=spec, d0=d0, d_count=d_count):
+            return deposit.prepare_batch(coords, w, torch.ones(w.shape[1], device=dev), spec=spec,
+                                         density_type="gaussian_notrunc", sigma=0.5, mask=mask, d_offset=d0,
+                                         d_count=d_count)
+        yield name, spec, getattr(torch, out_dtype), prep
+
+
+def tile_variants(dev):
+    from chip_smoke import emit, time_graph_ms
+    from molvoxel_torch.ops import deposit
+
+    libs = build({name: patched(subs) for name, subs in TILE_VARIANTS.items()})
+    for name, (_, report) in libs.items():
+        lines = report.splitlines()
+        tile_regs = sorted({int(ln.split("Used ")[1].split(" registers")[0]) for i, ln in enumerate(lines)
+                            if "registers" in ln and any("notrunc_kernel" in x for x in lines[max(0, i - 3):i])})
+        emit({"phase": "tile_variant_build", "variant": name, "tile_registers": tile_regs})
+    order = list(TILE_VARIANTS) + list(TILE_VARIANTS)[::-1]
+    for label, spec, odt, prep in tile_cases(dev):
+        times = {name: [] for name in TILE_VARIANTS}
+        for name in order:
+            use(libs[name][0], deposit.ACC_MAX)
+            rows, wt, ranges, dl, _ = prep()
+            times[name].append(time_graph_ms(lambda: deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl,
+                                                                         gaussian=True, out_dtype=odt,
+                                                                         notrunc=True)))
+        emit({"phase": "tile_variants", "case": label, **{name: statistics.median(t) for name, t in times.items()}})
+
+
+def tile(dev):
+    import numpy as np
+    import torch
+
+    from chip_smoke import emit
+    from molvoxel_torch.ops import deposit
+
+    lib, _ = build({"tile": tile_phase_source()})["tile"]
+    use(lib, deposit.ACC_MAX)
+    lib.diag_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for name, spec, odt, prep in tile_cases(dev):
+        rows, wt, ranges, dl, _ = prep()
+        dim = spec.dimension
+        info = deposit.fwd_launch_info(wt.shape[0], wt.shape[1], wt.shape[2], dl, dim, True, odt, notrunc=True)
+        deposit.deposit_fwd(rows, wt, ranges, spec=spec, dl=dl, gaussian=True, out_dtype=odt, notrunc=True)
+        torch.cuda.synchronize()
+        n = min(info["blocks"], 1 << 17)
+        buf = np.zeros(n * 8, np.int64)
+        if lib.diag_read(buf.ctypes.data, n * 8) != 0:
+            raise SystemExit("torch_fwd_diag: reading the phase sums failed")
+        buf = buf.reshape(n, 8)
+        total = buf[:, :6].sum(axis=1)
+        worst = int(np.argmax(total))
+        names = TILE_PHASES + ("active_chunks", "kept_atoms")
+        emit({"phase": "tile_phases", "case": name, "blocks": n, "tile": info,
+              "mean_cycles": {k: float(buf[:, i].mean()) for i, k in enumerate(names)},
+              "longest_block_cycles": {k: int(buf[worst, i]) for i, k in enumerate(names)},
+              "median_block_total_cycles": float(np.median(total)), "longest_block_total_cycles": int(total.max())})
+
+
 def variants(dev):
     from chip_smoke import emit, time_graph_ms
     from molvoxel_torch.ops import deposit
@@ -183,7 +315,7 @@ def variants(dev):
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("phases", "variants"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("phases", "variants", "tile", "tile_variants"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -192,7 +324,8 @@ def main() -> int:
     from chip_smoke import emit, nvidia_smi
 
     emit({"phase": "card", "nvidia_smi": nvidia_smi(), "device": torch.cuda.get_device_name(0)})
-    (phases if sys.argv[1] == "phases" else variants)(torch.device("cuda"))
+    {"phases": phases, "variants": variants, "tile": tile,
+     "tile_variants": tile_variants}[sys.argv[1]](torch.device("cuda"))
     return 0
 
 

@@ -86,8 +86,8 @@ exit code:
    prep_profile: one headline ``forward_batch`` and one ``forward_single``
    of the protein at 48^3, each with the plain preparation and with the
    kernel in turns: host ms (median of 7), the device kernels and copies
-   of one call and its device-busy ms (torch.profiler), and the host time
-   between the entries and exits of its stages (``StageClock``).
+   a call and its device-busy ms, and the host ms a call in each of the
+   port's spans with its counters (torch.profiler, ``utils.timing.snapshot``).
    notrunc_routing (after the main paths): gaussian_notrunc's two CUDA
    routes from the same inputs (golden molecules padded as the entry points
    pad them, radii 1.0, sigma 0.5): the kernel route
@@ -743,7 +743,8 @@ def device_kernels(fn, calls: int = 3) -> list:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
         names = [n for n in device if not n.startswith(("Memcpy", "Memset"))]
         if device:
             break
@@ -834,100 +835,67 @@ def prep_timing(case: str, inputs, plan, plain, launches: int, floor_ms: float) 
     return line
 
 
-class StageClock:
-    """Wraps functions (``(owner, attribute, label)``: a module or class and
-    the name of a function on it) so that each call records its entry and
-    exit on the host clock; ``segments`` turns one call's marks into the
-    time between consecutive marks, labelled "a > b".  The originals come
-    back on exit."""
-
-    def __init__(self, targets):
-        self.targets = targets
-        self.marks = []
-
-    def __enter__(self):
-        self.saved = [(owner, name, getattr(owner, name)) for owner, name, _ in self.targets]
-        for (owner, name, fn), (_, _, label) in zip(self.saved, self.targets):
-            setattr(owner, name, self._wrap(fn, label))
-        return self
-
-    def _wrap(self, fn, label):
-        def timed(*args, **kw):
-            self.marks.append((f"{label}(", time.perf_counter()))
-            try:
-                return fn(*args, **kw)
-            finally:
-                self.marks.append((f"){label}", time.perf_counter()))
-        return timed
-
-    def __exit__(self, *exc):
-        for owner, name, fn in self.saved:
-            setattr(owner, name, fn)
-
-    def call(self, fn):
-        """Marks of one call of fn(), between "start" and "synced"."""
-        import torch
-
-        torch.cuda.synchronize()
-        self.marks = [("start", time.perf_counter())]
-        fn()
-        self.marks.append(("returned", time.perf_counter()))
-        torch.cuda.synchronize()
-        self.marks.append(("synced", time.perf_counter()))
-        return list(self.marks)
-
-
-def segments(marks) -> dict:
-    return {f"{a} > {b}": (tb - ta) * 1e3 for (a, ta), (b, tb) in zip(marks, marks[1:])}
-
-
 def phase_prep_profile(cases, plain) -> list:
-    """prep_profile: each (case, fn, stage targets) call with the plain
-    preparation (``plain`` in place of the kernel wrapper) and with the
-    kernel, in turns (plain, kernel, kernel, plain): its host-clock ms
-    (median of 7 after 2 warm-ups, ending in a synchronize), the device
-    work of one call under torch.profiler (kernels launched, copies, and
-    the device-busy ms from the device rows), and the host time between
-    the stages' entries and exits (median over the 7 calls)."""
+    """prep_profile: each (case, fn) call with the plain preparation
+    (``plain`` in place of the kernel wrapper) and with the kernel, in
+    turns (plain, kernel, kernel, plain): its host-clock ms (median of 7
+    after 2 warm-ups, ending in a synchronize); then 7 more calls under
+    torch.profiler: the device work a call (kernels launched, copies, and
+    the device-busy ms from the device rows), and the host ms a call in
+    each of the port's spans, total and self, with its counters a call
+    (``utils.timing.snapshot``) and the kernels' launches a call
+    (``deposit.launches``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from molvoxel_torch.ops import autodiff
+    from molvoxel_torch.ops import autodiff, deposit
+    from molvoxel_torch.utils import timing
 
     kernel_prep = autodiff.deposit_prep
+    calls = 7
 
     def with_plain(*args):
         return plain(*args)
 
     lines = []
-    for case, fn, targets in cases:
+    for case, fn in cases:
         for mode in ("plain", "kernel", "kernel", "plain"):
             autodiff.deposit_prep = with_plain if mode == "plain" else kernel_prep
             try:
                 fn()
                 fn()
-                host, stages = [], []
-                with StageClock(targets) as clock:
-                    for _ in range(7):
-                        marks = clock.call(fn)
-                        host.append((marks[-1][1] - marks[0][1]) * 1e3)
-                        stages.append(segments(marks))
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                host = []
+                for _ in range(calls):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
                     fn()
                     torch.cuda.synchronize()
+                    host.append((time.perf_counter() - t0) * 1e3)
+                before = dict(deposit.launches)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(calls):
+                        fn()
+                        torch.cuda.synchronize()
+                record = timing.snapshot()
+                launched = {k: (n - before[k]) / calls for k, n in deposit.launches.items() if n != before[k]}
             finally:
                 autodiff.deposit_prep = kernel_prep
-            device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            # the port's spans also lie on the device's timeline, as user annotations: not work
+            device = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
             copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
-            busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+            busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / calls
             runtime = [e for e in prof.events() if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                                               "cuLaunchKernel", "cudaMemcpyAsync")]
-            keys = stages[0].keys()
             line = {"phase": "prep_profile", "case": case, "prep": mode,
                     "host_ms_median": statistics.median(host), "host_ms_min": min(host), "host_ms_max": max(host),
-                    "device_kernels_per_call": len(device) - len(copies), "device_copies_per_call": len(copies),
-                    "runtime_launch_calls": len(runtime), "device_busy_ms": busy_ms,
-                    "stages_ms": {k: statistics.median(st[k] for st in stages if k in st) for k in keys},
+                    "device_kernels_per_call": (len(device) - len(copies)) / calls,
+                    "device_copies_per_call": len(copies) / calls, "runtime_launch_calls": len(runtime) / calls,
+                    "device_busy_ms": busy_ms,
+                    "stages_ms": {name: {"total": st["total_s"] / calls * 1e3, "self": st["self_s"] / calls * 1e3}
+                                  for name, st in record["spans"].items()},
+                    "counters_per_call": {name: n / calls for name, n in record["counters"].items()},
+                    "launches_per_call": launched,
                     "top_kernels": sorted({e.name[:60] for e in device})[:40]}
             emit(line)
             lines.append(line)
@@ -1528,7 +1496,8 @@ def phase_library(tmp: Path, dev):
                                    out_dtype="bfloat16", witness=True, prefetch_depth=4, seed=9)
         pass_s = time.perf_counter() - tp
     by_name = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+                      if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                      and not e.is_user_annotation),
                      reverse=True)
     busy_s = sum(us for us, _ in by_name) / 1e6
     emit({"phase": "library_stream_profile", "case": "plain", "pass_s_profiled": pass_s, "device_busy_s": busy_s,
@@ -2629,7 +2598,8 @@ def main() -> int:
         torch.cuda.synchronize()
     # only the device-side rows: a CPU op's row repeats the device time of the kernels it launched
     by_name = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+                      if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                      and not e.is_user_annotation),
                      reverse=True)
     busy_ms = sum(us for us, _ in by_name) / 2 / 1e3
     emit({"phase": "train_step_profile", "steps": 2, "device_busy_ms_per_step": busy_ms,
@@ -2657,9 +2627,6 @@ def main() -> int:
 
     # 5a. the preparation kernel at the main paths' shapes beside its plain
     # version, and where one call's host time goes with each of them
-    import molvoxel_torch.api.voxelizer as api_voxelizer
-    import molvoxel_torch.data.pipeline as pipeline
-    import molvoxel_torch.ops.batch as ops_batch
     from molvoxel_torch.ops.batch import draw_transforms
 
     floor_ms = launch_floor_ms()
@@ -2680,17 +2647,11 @@ def main() -> int:
         prep_timed.append(prep_timing(case, inputs, plan, plain_prepare, 1, floor_ms))
     vox64 = create_voxelizer(device=DEVICE, resolution=0.5, dimension=64)
     vox48 = create_voxelizer(device=DEVICE, resolution=0.5, dimension=48)
-    shared = [(deposit, "prepare_batch", "prepare_batch"), (deposit, "transform_table", "transform_table"),
-              (autodiff, "deposit_prep", "prep"), (autodiff, "deposit", "deposit"), (autodiff, "deposit_fwd", "launch")]
     phase_prep_profile([
         ("forward_batch_64lig_dim64_c4_bf16",
          lambda: vox64.forward_batch(clouds, radii=1.0, random_translation=0.5, random_rotation=True, key=seed,
-                                     out_dtype="bfloat16"),
-         [(pipeline, "pad_point_clouds", "pad_point_clouds"), (ops_batch, "voxelize_batch", "voxelize_batch")]
-         + shared),
-        ("forward_single_protein_dim48_f32", lambda: vox48.forward_single(prot_np, prot["center"], 1.0),
-         [(api_voxelizer, "_pad_coords", "pad_coords"), (api_voxelizer.Voxelizer, "_run", "run"),
-          (api_voxelizer, "voxelize", "voxelize"), (api_voxelizer, "_finalize", "finalize")] + shared),
+                                     out_dtype="bfloat16")),
+        ("forward_single_protein_dim48_f32", lambda: vox48.forward_single(prot_np, prot["center"], 1.0)),
     ], plain_prepare)
 
     # 5b. gaussian_notrunc: the kernel route against the separable product

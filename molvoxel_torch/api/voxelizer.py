@@ -31,6 +31,7 @@ from ..core.config import DENSITY_TYPE_LIST, RADII_TYPE_LIST, GridSpec, Voxelize
 from ..core.transform import RandomTransform, do_random_transform
 from ..ops.deposit import check_kernel_dtype
 from ..ops.voxelize import default_impl, voxelize  # noqa: F401  (default_impl: the JAX package's name here)
+from ..utils.timing import count, recording, span
 
 
 def _resolve_device(device) -> torch.device:
@@ -323,6 +324,12 @@ class Voxelizer:
         ``max(types)+1`` over the batch).  ``out_dtype``: "float32",
         "bfloat16" or "float8_e4m3fn"; accumulation is f32.
         """
+        with span("molvoxel.forward_batch"):  # around the whole body, the freeing of its locals included
+            return self._forward_batch(clouds, radii, centers, random_translation, random_rotation, key,
+                                       num_channels, out_dtype)
+
+    def _forward_batch(self, clouds, radii, centers, random_translation, random_rotation, key, num_channels,
+                       out_dtype):
         from ..data.pipeline import pad_point_clouds, types_to_onehot
         from ..ops.batch import voxelize_batch
 
@@ -330,14 +337,16 @@ class Voxelizer:
             raise ValueError("forward_batch needs at least one molecule")
         _forward_only(clouds, radii, centers)
         dev = self._compute_device()
-        if np.ndim(clouds[0][1]) == 1:  # types -> one-hot
-            num_c = num_channels if num_channels is not None else max(
-                int(_host(ch, None).max()) + 1 for _, ch in clouds
-            )
-            clouds = [(_host(crd, np.float32), types_to_onehot(_host(ch, None), num_c)) for crd, ch in clouds]
-        else:
-            clouds = [(_host(crd, np.float32), _host(ch, np.float32)) for crd, ch in clouds]
-        batch = pad_point_clouds(clouds, centers=centers)
+        with span("molvoxel.channels"):
+            if np.ndim(clouds[0][1]) == 1:  # types -> one-hot
+                num_c = num_channels if num_channels is not None else max(
+                    int(_host(ch, None).max()) + 1 for _, ch in clouds
+                )
+                clouds = [(_host(crd, np.float32), types_to_onehot(_host(ch, None), num_c)) for crd, ch in clouds]
+            else:
+                clouds = [(_host(crd, np.float32), _host(ch, np.float32)) for crd, ch in clouds]
+        with span("molvoxel.pad"):
+            batch = pad_point_clouds(clouds, centers=centers)
         b, vp = batch.batch_size, batch.padded_atoms
 
         channelwise = self.is_radii_type_channel_wise
@@ -359,13 +368,22 @@ class Voxelizer:
             gen = self.next_generator()
         else:
             gen = None
+        with span("molvoxel.copy_in"):
+            coords_t = torch.as_tensor(batch.coords, device=dev)
+            weights_t = torch.as_tensor(batch.weights, device=dev)
+            radii_t = torch.as_tensor(radii_arr, device=dev)
+            mask_t = torch.as_tensor(batch.mask, device=dev)
+            centers_t = None if batch.centers is None else torch.as_tensor(batch.centers, device=dev)
+            if recording():  # summed only while a profiler records: an untraced call pays for no counter
+                count("molvoxel.copy_in_bytes", batch.coords.nbytes + batch.weights.nbytes + radii_arr.nbytes
+                      + batch.mask.nbytes + (0 if batch.centers is None else batch.centers.nbytes))
         cfg = self._config
         return voxelize_batch(
-            torch.as_tensor(batch.coords, device=dev),
-            torch.as_tensor(batch.weights, device=dev),
-            torch.as_tensor(radii_arr, device=dev),
-            torch.as_tensor(batch.mask, device=dev),
-            None if batch.centers is None else torch.as_tensor(batch.centers, device=dev),
+            coords_t,
+            weights_t,
+            radii_t,
+            mask_t,
+            centers_t,
             gen,
             float(random_translation),
             spec=cfg.grid,

@@ -36,6 +36,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..core.config import GridSpec
+from ..utils.timing import span
 from .deposit import PrepPlan, Transforms, deposit_bwd, deposit_fwd, deposit_prep, notrunc_factor
 
 
@@ -163,4 +164,5 @@ def deposit(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor, *, 
     """``deposit_fwd``, differentiable in ``rows`` and ``weights``;
     ``notrunc``: threshold rows (gaussian_notrunc), which take the
     threshold-row launches forward and backward."""
-    return DepositFunction.apply(rows, weights, ranges, spec, dl, gaussian, out_dtype, notrunc)
+    with span("molvoxel.deposit"):
+        return DepositFunction.apply(rows, weights, ranges, spec, dl, gaussian, out_dtype, notrunc)

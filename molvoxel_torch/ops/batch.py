@@ -26,6 +26,7 @@ from ..core.transform import (  # noqa: F401  (do_random_transform: the JAX pack
     random_quaternion,
     random_translation_vector,
 )
+from ..utils.timing import span
 from .deposit import (
     apply_table,
     check_density,
@@ -159,18 +160,19 @@ def voxelize_batch(
         ``generator`` (the sharded paths draw a whole batch once and hand
         each rank its rows).
     """
-    check_density(density_type)
-    odt = out_torch_dtype(out_dtype)
-    resolved = resolve_impl(impl, coords)
-    separable = notrunc_separable(density_type, impl, resolved, channelwise)
-    if transforms is None:
-        transforms = draw_transforms(generator, coords.shape[0], float(random_translation), random_rotation)
-    if resolved != "cuda" or separable:  # on the kernels the preparation kernel places the atoms
-        coords, centers, transforms = _place(coords, centers, transforms), None, None
-    return _deposit(coords, weights, radii, mask, spec=spec, density_type=density_type, sigma=sigma,
-                    channelwise=channelwise, resolved=resolved, separable=separable, radii_batched=radii_batched,
-                    d_offset=d_offset, d_count=d_count, odt=odt, presorted=presorted, centers=centers,
-                    transforms=transforms)
+    with span("molvoxel.voxelize_batch"):
+        check_density(density_type)
+        odt = out_torch_dtype(out_dtype)
+        resolved = resolve_impl(impl, coords)
+        separable = notrunc_separable(density_type, impl, resolved, channelwise)
+        if transforms is None:
+            transforms = draw_transforms(generator, coords.shape[0], float(random_translation), random_rotation)
+        if resolved != "cuda" or separable:  # on the kernels the preparation kernel places the atoms
+            coords, centers, transforms = _place(coords, centers, transforms), None, None
+        return _deposit(coords, weights, radii, mask, spec=spec, density_type=density_type, sigma=sigma,
+                        channelwise=channelwise, resolved=resolved, separable=separable,
+                        radii_batched=radii_batched, d_offset=d_offset, d_count=d_count, odt=odt,
+                        presorted=presorted, centers=centers, transforms=transforms)
 
 
 def _row_tile(hw: int, w: int, target: int = 1024) -> int | None:

@@ -46,6 +46,7 @@ import torch
 
 from ..core.config import GridSpec, round_up
 from ..core.transform import quaternion_to_matrix, rotate
+from ..utils.timing import launches, reset_launches, span  # noqa: F401  (reset_launches: re-exported)
 from . import _build
 
 CHUNK = 64  # atoms per chunk (kChunk in deposit_fwd.cu)
@@ -82,13 +83,11 @@ _CT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 NOTRUNC_EPS = 1e-9
 _F32_ZERO_LOG = 103.972  # -ln(2^-150): exp(-x) rounds to f32 +0.0 for x above this
 
-# Launches of each kernel, counted by its wrapper where it launches.
-launches = {"deposit_prep": 0, "deposit_fwd": 0, "deposit_bwd": 0, "deposit_fwd_notrunc": 0, "deposit_bwd_notrunc": 0}
-
-
-def reset_launches():
-    for name in launches:
-        launches[name] = 0
+# Launches of each kernel, counted by its wrapper where it launches
+# (``launches`` is the tracer's, utils/timing.py; counted whether or not a
+# profiler records).
+launches.update(dict.fromkeys(("deposit_prep", "deposit_fwd", "deposit_bwd", "deposit_fwd_notrunc",
+                               "deposit_bwd_notrunc"), 0))
 
 
 def out_torch_dtype(out_dtype) -> torch.dtype:
@@ -1058,20 +1057,21 @@ def prepare_batch(coords, weights, radii, *, spec: GridSpec, density_type: str =
     ones (each caller's order of sort and transform)."""
     from .autodiff import prepare  # autodiff imports this module
 
-    gaussian = check_density(density_type)
-    check_kernel_dtype(coords.is_cuda, coords.dtype)
-    dev = coords.device
-    radii = torch.as_tensor(radii, dtype=torch.float32, device=dev)
-    if radii.ndim == 0:
-        radii = radii.expand(coords.shape[1])
-    plan = PrepPlan(spec, gaussian, sigma, notrunc=density_type == "gaussian_notrunc", d_offset=d_offset,
-                    d_count=d_count, sort=not presorted, channelwise=channelwise)
-    rows, wt, ranges, dl = prepare(
-        coords.to(torch.float32).contiguous(), weights.to(torch.float32).contiguous(), radii.contiguous(),
-        None if mask is None else mask.contiguous(),
-        None if centers is None else centers.to(device=dev, dtype=torch.float32).contiguous(),
-        transform_table(transforms, dev), plan)
-    return rows, wt, ranges, dl, gaussian
+    with span("molvoxel.prepare"):
+        gaussian = check_density(density_type)
+        check_kernel_dtype(coords.is_cuda, coords.dtype)
+        dev = coords.device
+        radii = torch.as_tensor(radii, dtype=torch.float32, device=dev)
+        if radii.ndim == 0:
+            radii = radii.expand(coords.shape[1])
+        plan = PrepPlan(spec, gaussian, sigma, notrunc=density_type == "gaussian_notrunc", d_offset=d_offset,
+                        d_count=d_count, sort=not presorted, channelwise=channelwise)
+        rows, wt, ranges, dl = prepare(
+            coords.to(torch.float32).contiguous(), weights.to(torch.float32).contiguous(), radii.contiguous(),
+            None if mask is None else mask.contiguous(),
+            None if centers is None else centers.to(device=dev, dtype=torch.float32).contiguous(),
+            transform_table(transforms, dev), plan)
+        return rows, wt, ranges, dl, gaussian
 
 
 def voxelize_deposit_batch(coords, weights, radii, *, spec: GridSpec, density_type: str = "gaussian",

@@ -79,6 +79,11 @@ exit code:
    SM x SMs)) and write rate (grid bytes / kernel time).  The headline
    ``forward_batch`` call and the training step are also timed on the host
    clock (median, minimum and maximum of 7).
+   main_path_staging: ``forward_batch`` at the benchmark cells' shapes
+   (``staging_cells``), 32 calls back to back with no synchronize, as they
+   come and queued behind a device sleep, bit for bit against the same
+   calls made one at a time; the pinned staging ring's allocations and
+   waits a call.
    prep_timing: deposit_prep at the headline batch's shape, the protein's
    at 48^3, 8 complexes at 48^3 and molecules of 20,000 and 65,536 atoms
    (CUDA-graph replay and back to back) beside prepare_plain timed the
@@ -899,6 +904,101 @@ def phase_prep_profile(cases, plain) -> list:
                     "top_kernels": sorted({e.name[:60] for e in device})[:40]}
             emit(line)
             lines.append(line)
+    return lines
+
+
+STAGING_CALLS = 32
+
+
+def staging_cells(calls: int = STAGING_CALLS, seed: int = 0) -> dict:
+    """``forward_batch`` at the benchmark cells' shapes, from tests/goldens:
+    {cell: (voxelizer keywords, [the keywords of each of ``calls`` calls])}.
+
+    - complex48.batch16: 16 copies of the 61-atom ligand and the 3,262-atom
+      protein (3,323 atoms, type 0), centered on the ligand's mean, 48^3 x 1,
+      f32;
+    - ligand64.batch64: 64 ligands a call from a pool of 4,096, each 20-61 of
+      the ligand's atoms jittered by U(-0.3, 0.3) A with types 0-3 and
+      centered on its mean, one of them with no atom, 64^3 x 4, bf16.
+
+    Every call draws a rotation and a 0.5 A translation from its own key."""
+    import numpy as np
+
+    lig, prot = load_golden("lig_types_gaussian"), load_golden("protein_single_gaussian")
+    rng = np.random.default_rng(seed)
+    xyz = np.concatenate([lig["coords"], prot["coords"]]).astype(np.float32)
+    center = lig["coords"].astype(np.float64).mean(0).astype(np.float32)
+    pool = []
+    for i in range(4096):
+        n = 0 if i == 100 else int(rng.integers(20, 62))
+        keep = np.sort(rng.choice(len(lig["coords"]), n, replace=False))
+        crd = (lig["coords"][keep] + rng.uniform(-0.3, 0.3, (n, 3))).astype(np.float32)
+        pool.append((crd, rng.integers(0, 4, n), crd.mean(0) if n else np.zeros(3, np.float32)))
+    aug = dict(radii=1.0, random_translation=0.5, random_rotation=True)
+    complex_calls = [dict(clouds=[(xyz, np.zeros(len(xyz), np.int64))] * 16, centers=[center] * 16, num_channels=1,
+                          out_dtype="float32", key=seed * 1000 + k, **aug) for k in range(calls)]
+    ligand_calls = []
+    for k in range(calls):
+        mols = [pool[(64 * k + j) % len(pool)] for j in range(64)]
+        ligand_calls.append(dict(clouds=[(m[0], m[1]) for m in mols], centers=[m[2] for m in mols], num_channels=4,
+                                 out_dtype="bfloat16", key=seed * 1000 + k, **aug))
+    return {"complex48.batch16": (dict(resolution=0.5, dimension=48), complex_calls),
+            "ligand64.batch64": (dict(resolution=0.5, dimension=64), ligand_calls)}
+
+
+def phase_staging(dev) -> list:
+    """forward_batch's pinned staging ring without a synchronize: at each
+    cell's shape (``staging_cells``), 32 calls back to back must return, bit
+    for bit, the grids of the same calls made one at a time with a
+    synchronize after each; once as they come, and once queued behind
+    50-100 ms of device sleep, so that the ring must wait for copies that
+    have not run.  Then 4 calls under ``torch.inference_mode()`` on a fresh
+    voxelizer and the same 4 outside it, on the slots the first made.  The
+    staging counters a call (under a CPU profiler, after the warm-up calls):
+    allocations and growths, and waits."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from molvoxel_torch import create_voxelizer
+    from molvoxel_torch.utils import timing
+
+    lines = []
+    for cell, (vox_kw, calls) in staging_cells().items():
+        vox = create_voxelizer(device=DEVICE, **vox_kw)
+        one_at_a_time = []
+        for kw in calls:
+            one_at_a_time.append(vox.forward_batch(**kw))
+            torch.cuda.synchronize()
+        counters = {}
+        for mode in ("back_to_back", "behind_sleep"):
+            with timing.span("molvoxel.untraced"):
+                pass
+            with profile(activities=[ProfilerActivity.CPU]):
+                if mode == "behind_sleep":
+                    torch.cuda._sleep(100_000_000)  # cycles: 50-100 ms at the card's clocks
+                outs = [vox.forward_batch(**kw) for kw in calls]
+                torch.cuda.synchronize()
+            got = timing.snapshot()["counters"]
+            counters[mode] = {name: got.get(f"molvoxel.staging_{name}", 0) / len(calls)
+                              for name in ("allocs", "waits")}
+            same = [same_bits(a, b) for a, b in zip(outs, one_at_a_time)]
+            if not all(same):
+                raise SystemExit(f"staging {cell} {mode}: calls {[i for i, ok in enumerate(same) if not ok]} differ "
+                                 "from the same calls made one at a time")
+        fresh = create_voxelizer(device=DEVICE, **vox_kw)  # its slots made under inference mode, reused outside it
+        with torch.inference_mode():
+            outs = [fresh.forward_batch(**kw) for kw in calls[:4]]
+        outs += [fresh.forward_batch(**kw) for kw in calls[:4]]
+        torch.cuda.synchronize()
+        same = [same_bits(a, b) for a, b in zip(outs, one_at_a_time[:4] * 2)]
+        if not all(same):
+            bad = [i for i, ok in enumerate(same) if not ok]
+            raise SystemExit(f"staging {cell} inference mode, then normal: calls {bad} differ from the same calls "
+                             "made one at a time")
+        line = {"phase": "main_path_staging", "cell": cell, "calls": len(calls), "bit_for_bit": True,
+                "inference_mode_then_normal": True, "slots": len(vox._ring.slots), "per_call": counters}
+        emit(line)
+        lines.append(line)
     return lines
 
 
@@ -2473,6 +2573,7 @@ def main() -> int:
     emit({"phase": "main_path_e2e", "case": row1[0]["case"], "forward_batch_ms_median": e2e_ms,
           "forward_batch_ms_min": min(e2e), "forward_batch_ms_max": max(e2e), "calls": len(e2e),
           "mols_per_s": 64 / (e2e_ms / 1e3)})
+    phase_staging(dev)
     prot_np = prot["coords"]
     for dim in (48, 128):
         spec = GridSpec(0.5, dim)

@@ -22,6 +22,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -29,6 +30,7 @@ import torch
 
 from ..core.config import DENSITY_TYPE_LIST, RADII_TYPE_LIST, GridSpec, VoxelizerConfig, small_atom_bucket
 from ..core.transform import RandomTransform, do_random_transform
+from ..data.staging import PinnedRing, batch_layout, stage_batch, unpinned
 from ..ops.deposit import check_kernel_dtype
 from ..ops.voxelize import default_impl, voxelize  # noqa: F401  (default_impl: the JAX package's name here)
 from ..utils.timing import count, recording, span
@@ -87,6 +89,10 @@ class Voxelizer:
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
         self._generator = torch.Generator().manual_seed(int(seed))
+        self._ring = None  # forward_batch's pinned staging ring on the card, made at its first call there
+
+    def __getstate__(self):
+        return {**self.__dict__, "_ring": None}  # pinned buffers and CUDA events stay in this process
 
     # ----------------------------------------------------------------- device
 
@@ -330,71 +336,92 @@ class Voxelizer:
 
     def _forward_batch(self, clouds, radii, centers, random_translation, random_rotation, key, num_channels,
                        out_dtype):
-        from ..data.pipeline import pad_point_clouds, types_to_onehot
         from ..ops.batch import voxelize_batch
 
         if len(clouds) == 0:
             raise ValueError("forward_batch needs at least one molecule")
         _forward_only(clouds, radii, centers)
         dev = self._compute_device()
-        with span("molvoxel.channels"):
-            if np.ndim(clouds[0][1]) == 1:  # types -> one-hot
-                num_c = num_channels if num_channels is not None else max(
-                    int(_host(ch, None).max()) + 1 for _, ch in clouds
-                )
-                clouds = [(_host(crd, np.float32), types_to_onehot(_host(ch, None), num_c)) for crd, ch in clouds]
-            else:
-                clouds = [(_host(crd, np.float32), _host(ch, np.float32)) for crd, ch in clouds]
-        with span("molvoxel.pad"):
-            batch = pad_point_clouds(clouds, centers=centers)
-        b, vp = batch.batch_size, batch.padded_atoms
-
         channelwise = self.is_radii_type_channel_wise
-        radii_batched = False
-        if channelwise:
-            radii_arr = _host(radii, np.float32)
-        elif np.isscalar(radii):
-            radii_arr = np.full((vp,), float(radii), np.float32)
-        else:
-            radii_arr = np.ones((b, vp), np.float32)
-            for i, r in enumerate(radii):
-                r = _host(r, np.float32)
-                radii_arr[i, : r.shape[0]] = r
-            radii_batched = True
+        with span("molvoxel.channels"):
+            b = len(clouds)
+            typed = np.ndim(clouds[0][1]) == 1  # types -> one-hot
+            chan_dtype = np.int64 if typed else np.float32
+            coords, channels, counts = [], [], []
+            for crd, ch in clouds:
+                crd = _host(crd, np.float32)
+                coords.append(crd)
+                channels.append(_host(ch, chan_dtype))
+                counts.append(crd.shape[0])
+            counts = np.array(counts, np.int64)
+            if not typed:
+                num_c = channels[0].shape[1]
+            elif num_channels is not None:
+                num_c = int(num_channels)
+            else:
+                num_c = max((int(t.max()) + 1 for t in channels if t.size), default=1)
+            if channelwise:
+                radii_in = _host(radii, np.float32)
+            elif np.isscalar(radii):
+                radii_in = float(radii)
+            else:
+                radii_in = [_host(r, np.float32) for r in radii]
+            centers_in = None
+            if centers is not None:
+                if len(centers) != b:
+                    raise ValueError(f"forward_batch has {b} molecules and {len(centers)} centers")
+                centers_in = _host(centers, np.float32).reshape(b, 3)
+        with contextlib.ExitStack() as held:  # the ring's slot, given back behind the kernels that read it
+            with span("molvoxel.pad"):  # the one pass that writes the padded batch into its staging buffer
+                vp = small_atom_bucket(int(counts.max()))
+                radii_shape = (tuple(radii_in.shape) if channelwise else (vp,) if isinstance(radii_in, float)
+                               else (b, vp))
+                layout = batch_layout(b, vp, num_c, radii_shape, centers_in is not None)
+                ring = self._staging_ring(dev)
+                staged = unpinned(layout) if ring is None else held.enter_context(ring.taken(layout))
+                stage_batch(staged.arrays, coords, channels, counts, typed, radii_in, centers_in)
 
-        if key is not None:
-            gen = _generator(key)
-        elif random_rotation or random_translation > 0:
-            gen = self.next_generator()
-        else:
-            gen = None
-        with span("molvoxel.copy_in"):
-            coords_t = torch.as_tensor(batch.coords, device=dev)
-            weights_t = torch.as_tensor(batch.weights, device=dev)
-            radii_t = torch.as_tensor(radii_arr, device=dev)
-            mask_t = torch.as_tensor(batch.mask, device=dev)
-            centers_t = None if batch.centers is None else torch.as_tensor(batch.centers, device=dev)
-            if recording():  # summed only while a profiler records: an untraced call pays for no counter
-                count("molvoxel.copy_in_bytes", batch.coords.nbytes + batch.weights.nbytes + radii_arr.nbytes
-                      + batch.mask.nbytes + (0 if batch.centers is None else batch.centers.nbytes))
-        cfg = self._config
-        return voxelize_batch(
-            coords_t,
-            weights_t,
-            radii_t,
-            mask_t,
-            centers_t,
-            gen,
-            float(random_translation),
-            spec=cfg.grid,
-            density_type=cfg.density_type,
-            sigma=cfg.sigma,
-            random_rotation=bool(random_rotation),
-            channelwise=channelwise,
-            impl=self._impl,
-            radii_batched=radii_batched,
-            out_dtype=out_dtype,
-        )
+            if key is not None:
+                gen = _generator(key)
+            elif random_rotation or random_translation > 0:
+                gen = self.next_generator()
+            else:
+                gen = None
+            with span("molvoxel.copy_in"):
+                tensors = layout.tensors(staged.host) if ring is None else ring.send(staged)
+                if recording():  # counted only while a profiler records: an untraced call pays for no counter
+                    count("molvoxel.copy_in_bytes", layout.payload)
+            coords_t, weights_t, radii_t, mask_t = tensors[:4]
+            centers_t = tensors[4] if centers_in is not None else None
+            cfg = self._config
+            return voxelize_batch(
+                coords_t,
+                weights_t,
+                radii_t,
+                mask_t,
+                centers_t,
+                gen,
+                float(random_translation),
+                spec=cfg.grid,
+                density_type=cfg.density_type,
+                sigma=cfg.sigma,
+                random_rotation=bool(random_rotation),
+                channelwise=channelwise,
+                impl=self._impl,
+                radii_batched=isinstance(radii_in, list),
+                out_dtype=out_dtype,
+            )
+
+    def _staging_ring(self, dev: torch.device) -> PinnedRing | None:
+        """The pinned ring forward_batch stages through on the card: two
+        slots, so a call waits only for the kernels of the call before the
+        last.  None on the CPU, where each call writes a fresh buffer that
+        its tensors keep."""
+        if dev.type != "cuda":
+            return None
+        if self._ring is None or self._ring.device != dev:
+            self._ring = PinnedRing(2, dev)
+        return self._ring
 
     # ----------------------------------------------------------------- engine
 
@@ -485,6 +512,8 @@ def _forward_only(*args):
     """Raise for any tensor argument (or tensor in a list or tuple of them)
     that requires grad: a forward would otherwise cut it from the graph."""
     for a in args:
+        if type(a) is np.ndarray:  # the common case, before a tensor's slow isinstance
+            continue
         if isinstance(a, (list, tuple)):
             _forward_only(*a)
         elif isinstance(a, torch.Tensor) and a.requires_grad:
@@ -497,7 +526,7 @@ def _forward_only(*args):
 
 def _host(array, dtype) -> np.ndarray:
     """numpy view of an array or tensor (tensors are copied to the host)."""
-    if isinstance(array, torch.Tensor):
+    if type(array) is not np.ndarray and isinstance(array, torch.Tensor):  # a tensor's isinstance is slow
         array = array.detach().cpu().numpy()
     return np.asarray(array, dtype=dtype)
 

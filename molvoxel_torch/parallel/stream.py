@@ -37,6 +37,7 @@ import torch
 
 from ..core.config import GridSpec
 from ..data.pipeline import PaddedBatch, iter_batches
+from ..data.staging import PinnedRing
 from ..ops.batch import voxelize_batch, voxelize_batch_sliced
 from .sharded import voxelize_batch_dp
 
@@ -178,7 +179,7 @@ class StreamingVoxelizer:
         """The pinned ring ``_dispatch`` stages batches through (None on the CPU)."""
         if self.device.type != "cuda":
             return None
-        return _PinnedRing(2, self.device, torch.cuda.Stream(self.device))
+        return PinnedRing(2, self.device, torch.cuda.Stream(self.device))
 
     def run(
         self,
@@ -250,42 +251,6 @@ class StreamingVoxelizer:
 
 
 # ------------------------------------------------------- superbatch stream
-
-
-class _PinnedRing:
-    """``depth`` pinned host buffers, each reused only after the event
-    recorded behind its last host-to-device copy has completed.  ``stage``
-    packs a superbatch's arrays into the next buffer and copies it to the
-    card in ONE transfer on ``stream``; it returns device views of the
-    arrays and the event the consumer must wait for."""
-
-    def __init__(self, depth: int, device: torch.device, stream):
-        self.device, self.stream = device, stream
-        self.slots: list[list] = [[None, None] for _ in range(depth)]  # [pinned uint8, event]
-        self.next = 0
-
-    def stage(self, arrays: list[np.ndarray]):
-        offsets, total = [], 0
-        for a in arrays:
-            offsets.append(total)
-            total += -(-a.nbytes // 16) * 16
-        slot = self.slots[self.next]
-        self.next = (self.next + 1) % len(self.slots)
-        if slot[1] is not None:
-            slot[1].synchronize()  # its previous copy has left the buffer
-        if slot[0] is None or slot[0].numel() < total:
-            slot[0] = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=True)
-        host = slot[0].numpy()
-        for a, off in zip(arrays, offsets):
-            host[off:off + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            dev = slot[0][:total].to(self.device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self.stream)
-        slot[1] = event
-        views = [dev[off:off + a.nbytes].view(getattr(torch, a.dtype.name)).reshape(a.shape)
-                 for a, off in zip(arrays, offsets)]
-        return views, event
 
 
 def _scan_chunks(coords, types, centers, generator, acc, *, chunk, num_channels, radii, rtab, random_translation,
@@ -369,7 +334,7 @@ def stream_checksum(
     radii_vec: dict[int, torch.Tensor] = {}
     scale = wire_scale(spec)
     side = torch.cuda.Stream(dev) if cuda else None
-    ring = _PinnedRing(prefetch_depth + 1, dev, side) if cuda else None
+    ring = PinnedRing(prefetch_depth + 1, dev, side) if cuda else None
 
     def host_arrays(batch):
         """(arrays to stage, molecules, channels) of one superbatch."""

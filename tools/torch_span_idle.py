@@ -12,7 +12,9 @@ reads it with ``portbench/timeline.py``:
 - ``device_ops``: how many of the window's device operations (kernels,
   copies, sets) were launched inside a ``molvoxel.*`` range on the
   launching thread, with the names of those that were not;
-- ``host_s``: the window's host time by innermost ``molvoxel.*`` span.
+- ``host_s``: the window's host time by innermost ``molvoxel.*`` span;
+- ``counters``: the port's counters in the window (``timing.snapshot``):
+  the bytes copied in, the staging ring's allocations and waits.
 
 Prints one JSON line (``result`` is the run's own result line) and writes it
 to ``--out`` when given.  Needs a CUDA device.
@@ -153,7 +155,10 @@ def main(argv=None) -> int:
     harness.enable_cache()
     result, _ = harness.run_cell(args.workload, args.seed, args.seconds, True, t_start=t_start)
     timeline.Timeline.load = classmethod(load)
-    line = {"workload": args.workload, "seed": args.seed, **split(kept["events"], kept["timeline"]), "result": result}
+    from molvoxel_torch.utils.timing import snapshot
+
+    line = {"workload": args.workload, "seed": args.seed, **split(kept["events"], kept["timeline"]),
+            "counters": snapshot()["counters"], "result": result}
     text = json.dumps(line)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -46,7 +46,7 @@ import torch
 
 from ..core.config import GridSpec, round_up
 from ..core.transform import quaternion_to_matrix, rotate
-from ..utils.timing import launches, reset_launches, span  # noqa: F401  (reset_launches: re-exported)
+from ..utils.timing import count, launches, recording, reset_launches, span  # noqa: F401  (reset_launches re-exported)
 from . import _build
 
 CHUNK = 64  # atoms per chunk (kChunk in deposit_fwd.cu)
@@ -88,6 +88,24 @@ _F32_ZERO_LOG = 103.972  # -ln(2^-150): exp(-x) rounds to f32 +0.0 for x above t
 # profiler records).
 launches.update(dict.fromkeys(("deposit_prep", "deposit_fwd", "deposit_bwd", "deposit_fwd_notrunc",
                                "deposit_bwd_notrunc"), 0))
+
+
+# The work each forward and preparation was given, known on the host and
+# counted only while a profiler records (untraced: one flag read): the bytes
+# of the grids a forward writes, and the padded atom slots a preparation
+# Morton-sorts (0 when it does not sort).
+
+
+def _count_grid(out: torch.Tensor) -> torch.Tensor:
+    if recording():
+        count("molvoxel.grid_bytes", out.numel() * out.element_size())
+    return out
+
+
+def _count_sort(out: Prepared, plan: PrepPlan) -> Prepared:
+    if recording():
+        count("molvoxel.sort_slots", out.perm.numel() if plan.sort and out.perm.shape[1] > CHUNK else 0)
+    return out
 
 
 def out_torch_dtype(out_dtype) -> torch.dtype:
@@ -704,7 +722,8 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
     if notrunc and not gaussian:
         raise ValueError("threshold rows (notrunc) are gaussian")
     if rows.device.type == "cpu":
-        return deposit_plain(rows, weights, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_dtype)
+        return _count_grid(deposit_plain(rows, weights, ranges, spec=spec, dl=dl, gaussian=gaussian,
+                                         out_dtype=out_dtype))
     _check_kernel_inputs("deposit_fwd", rows, weights)
     b, _, vp = rows.shape
     c = weights.shape[1]
@@ -723,7 +742,7 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"deposit_fwd kernel launch failed with cudaError {rc}")
     launches[entry] += 1
-    return out
+    return _count_grid(out)
 
 
 def fwd_launch(b: int, vp: int, c: int, dl: int, spec: GridSpec, gaussian: bool, out_dtype=torch.float32,
@@ -987,7 +1006,7 @@ def deposit_prep(coords, weights, radii, mask, centers, transforms: Transforms, 
     (``prep_launch``).  CPU tensors run ``prepare_plain``.  Nothing here
     synchronises the host.  Raises on anything the kernel does not take."""
     if coords.device.type == "cpu":
-        return prepare_plain(coords, weights, radii, mask, centers, transforms, plan)
+        return _count_sort(prepare_plain(coords, weights, radii, mask, centers, transforms, plan), plan)
     table = None if transforms.table is None else transforms.table.to(torch.float32)
     _check_prep_inputs(coords, weights, radii, mask, centers, table, plan)
     b, v, _ = coords.shape
@@ -1024,7 +1043,7 @@ def deposit_prep(coords, weights, radii, mask, centers, transforms: Transforms, 
     if rc != 0:
         raise RuntimeError(f"deposit_prep kernel launch failed with cudaError {rc}")
     launches["deposit_prep"] += 1
-    return Prepared(rows, wt, ranges, perm, dl)
+    return _count_sort(Prepared(rows, wt, ranges, perm, dl), plan)
 
 
 # ------------------------------------------------------------- wrappers

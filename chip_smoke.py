@@ -84,6 +84,13 @@ exit code:
    come and queued behind a device sleep, bit for bit against the same
    calls made one at a time; the pinned staging ring's allocations and
    waits a call.
+   launch_plan: ``forward_batch``'s launch plans against the autograd
+   Functions at the benchmark cells' shapes (``phase_launch_plan``): one
+   staged batch and table through both routes, bit for bit; 8 calls against
+   the draw chain ``draw_transforms`` + ``transform_table``, within 1e-6;
+   200 calls with no plan built, no staging allocation and (complex,
+   ligands) no wait.  ``python3 chip_smoke.py launch_plan`` builds the
+   kernels and runs this phase alone.
    prep_timing: deposit_prep at the headline batch's shape, the protein's
    at 48^3, 8 complexes at 48^3 and molecules of 20,000 and 65,536 atoms
    (CUDA-graph replay and back to back) beside prepare_plain timed the
@@ -856,16 +863,24 @@ def phase_prep_profile(cases, plain) -> list:
     from molvoxel_torch.ops import autodiff, deposit
     from molvoxel_torch.utils import timing
 
-    kernel_prep = autodiff.deposit_prep
+    kernel_prep, plan_prep = autodiff.deposit_prep, deposit.LaunchPlan.prepare
     calls = 7
 
     def with_plain(*args):
         return plain(*args)
 
+    def plan_with_plain(lp, coords, weights, radii, mask, centers, table):  # the plans' route, plain (and 4 copies)
+        got = plain(coords, weights, radii, mask, centers, deposit.Transforms(table, lp.rot, lp.trans), lp.prep)
+        words = torch.empty(lp.words, dtype=torch.float32, device=coords.device)
+        for dst, src in zip(lp.outputs(words)[:4], got[:4]):
+            dst.copy_(src)
+        return words
+
     lines = []
     for case, fn in cases:
         for mode in ("plain", "kernel", "kernel", "plain"):
             autodiff.deposit_prep = with_plain if mode == "plain" else kernel_prep
+            deposit.LaunchPlan.prepare = plan_with_plain if mode == "plain" else plan_prep
             try:
                 fn()
                 fn()
@@ -884,7 +899,7 @@ def phase_prep_profile(cases, plain) -> list:
                 record = timing.snapshot()
                 launched = {k: (n - before[k]) / calls for k, n in deposit.launches.items() if n != before[k]}
             finally:
-                autodiff.deposit_prep = kernel_prep
+                autodiff.deposit_prep, deposit.LaunchPlan.prepare = kernel_prep, plan_prep
             # the port's spans also lie on the device's timeline, as user annotations: not work
             device = [e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
@@ -999,6 +1014,135 @@ def phase_staging(dev) -> list:
                 "inference_mode_then_normal": True, "slots": len(vox._ring.slots), "per_call": counters}
         emit(line)
         lines.append(line)
+    return lines
+
+
+PLAN_CALLS = 200
+
+
+def launch_plan_cells(calls: int) -> dict:
+    """``staging_cells``' two cells and the protein cell's shape: 16 whole
+    10gs proteins (the 3,262 atoms of tests/goldens, type 0) centered on
+    their mean, 128^3 x 1, f32; every call draws a rotation and a 0.5 A
+    translation from its own key."""
+    import numpy as np
+
+    cells = staging_cells(calls)
+    xyz = load_golden("protein_single_gaussian")["coords"].astype(np.float32)
+    center = xyz.astype(np.float64).mean(0).astype(np.float32)
+    prot_calls = [dict(clouds=[(xyz, np.zeros(len(xyz), np.int64))] * 16, centers=[center] * 16, num_channels=1,
+                       out_dtype="float32", key=7000 + k, radii=1.0, random_translation=0.5, random_rotation=True)
+                  for k in range(calls)]
+    cells["protein128.batch16"] = (dict(resolution=0.5, dimension=128), prot_calls)
+    return cells
+
+
+def phase_launch_plan(dev) -> list:
+    """launch_plan: ``forward_batch``'s kernel route through its launch
+    plans (``deposit.LaunchPlan``: no autograd Function) against the
+    autograd Functions, at each benchmark cell's shape
+    (``launch_plan_cells``):
+
+    - one staged batch and transform table through both routes
+      (``voxelize_batch`` under ``torch.no_grad()``, and with coordinates
+      that need a gradient): grids bit for bit, one plan launch on the
+      first and none on the second;
+    - 8 calls of ``forward_batch`` (its table from ``draw_transform_table``
+      in the staging slot) against the autograd route fed the draw chain
+      ``draw_transforms`` + ``transform_table`` from the same key: grids
+      within 1e-6, and whether bit for bit;
+    - 200 calls back to back under a CPU profiler after 4 warm-up calls:
+      no plan built, one plan launch a call, no staging allocation, and in
+      the host-bound complex and ligand cells no wait for a slot (the
+      protein's waits, where its kernels outlast the host, are reported)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from molvoxel_torch import create_voxelizer
+    from molvoxel_torch.api.voxelizer import _generator
+    from molvoxel_torch.core.config import small_atom_bucket
+    from molvoxel_torch.core.transform import draw_transform_table
+    from molvoxel_torch.data import staging
+    from molvoxel_torch.ops import deposit
+    from molvoxel_torch.ops.batch import draw_transforms, voxelize_batch
+    from molvoxel_torch.utils import timing
+
+    def counted(fn):
+        with timing.span("molvoxel.untraced"):
+            pass
+        with profile(activities=[ProfilerActivity.CPU]):
+            with timing.span("molvoxel.launch_plan_phase"):  # opens the record whatever fn counts
+                out = fn()
+            torch.cuda.synchronize()
+        return out, timing.snapshot()["counters"]
+
+    def staged(kw):  # the batch forward_batch stages for these keywords, on the card
+        crds, types = [c for c, _ in kw["clouds"]], [t for _, t in kw["clouds"]]
+        counts = np.array([len(c) for c in crds], np.int64)
+        vp = small_atom_bucket(int(counts.max()))
+        layout = staging.batch_layout(len(crds), vp, kw["num_channels"], (vp,), True)
+        buf = staging.unpinned(layout)
+        staging.stage_batch(buf.arrays, crds, types, counts, True, 1.0, np.stack(kw["centers"]).astype(np.float32))
+        return [t.to(dev) for t in layout.tensors(buf.host)]
+
+    lines, failed = [], []
+    for cell, (vox_kw, calls) in launch_plan_cells(PLAN_CALLS).items():
+        vox = create_voxelizer(device=DEVICE, **vox_kw)
+        b = len(calls[0]["clouds"])
+
+        def route(tensors, transforms, grad, odt):
+            coords, w, radii, mask, centers = tensors
+            kw = dict(spec=vox.spec, density_type=vox.density_type, sigma=vox.sigma, out_dtype=odt,
+                      transforms=transforms)
+            if not grad:
+                with torch.no_grad():
+                    return voxelize_batch(coords, w, radii, mask, centers, **kw)
+            with torch.enable_grad():
+                return voxelize_batch(coords.clone().requires_grad_(True), w, radii, mask, centers, **kw).detach()
+
+        first = calls[0]
+        tensors = staged(first)
+        table = deposit.Transforms(torch.as_tensor(draw_transform_table(_generator(first["key"]), b, 0.5, True),
+                                                   device=dev), True, True)
+        plan_grid, plan_counts = counted(lambda: route(tensors, table, False, first["out_dtype"]))
+        grad_grid, grad_counts = counted(lambda: route(tensors, table, True, first["out_dtype"]))
+        same_table = same_bits(plan_grid, grad_grid)
+        routes = (plan_counts.get("molvoxel.plan_launches", 0), grad_counts.get("molvoxel.plan_launches", 0))
+        del plan_grid, grad_grid
+        diffs, bitwise = [], []
+        for kw in calls[:8]:
+            got = vox.forward_batch(**kw)
+            want = route(staged(kw), draw_transforms(_generator(kw["key"]), b, 0.5, True), True, kw["out_dtype"])
+            diffs.append(float((got.float() - want.float()).abs().max()))
+            bitwise.append(same_bits(got, want))
+            del got, want
+        for kw in calls[:4]:
+            vox.forward_batch(**kw)
+        torch.cuda.synchronize()
+
+        def loop():
+            for kw in calls:
+                vox.forward_batch(**kw)
+
+        _, counts = counted(loop)
+        per_call = {name: counts.get(f"molvoxel.{name}", 0) / len(calls)
+                    for name in ("plan_builds", "plan_launches", "staging_allocs", "staging_waits")}
+        host_bound = cell != "protein128.batch16"
+        ok = (same_table and routes == (1, 0) and max(diffs) <= 1e-6 and per_call["plan_builds"] == 0
+              and per_call["plan_launches"] == 1 and per_call["staging_allocs"] == 0
+              and (per_call["staging_waits"] == 0 or not host_bound))
+        line = {"phase": "launch_plan", "cell": cell, "same_table_bit_for_bit": same_table,
+                "plan_launches_plan_and_autograd_route": list(routes),
+                "vs_draw_chain_max_abs_diff": max(diffs),
+                "vs_draw_chain_bit_for_bit": f"{sum(bitwise)} of {len(bitwise)}",
+                "calls": len(calls), "per_call": per_call, "plans_cached": len(deposit._PLANS), "ok": bool(ok)}
+        emit(line)
+        lines.append(line)
+        if not ok:
+            failed.append(cell)
+    if failed:
+        raise SystemExit(f"launch_plan failed: {failed}")
     return lines
 
 
@@ -2574,6 +2718,7 @@ def main() -> int:
           "forward_batch_ms_min": min(e2e), "forward_batch_ms_max": max(e2e), "calls": len(e2e),
           "mols_per_s": 64 / (e2e_ms / 1e3)})
     phase_staging(dev)
+    phase_launch_plan(dev)
     prot_np = prot["coords"]
     for dim in (48, 128):
         spec = GridSpec(0.5, dim)
@@ -2850,5 +2995,23 @@ def main() -> int:
     return 0
 
 
+def launch_plan_only() -> int:
+    """The build and the launch_plan phase alone."""
+    import torch
+
+    from molvoxel_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    emit({"phase": "card", "nvidia_smi": nvidia_smi(), "device": torch.cuda.get_device_name(0),
+          "cuda": torch.version.cuda, "torch": torch.__version__, "python": sys.version.split()[0]})
+    emit({"phase": "build", "per_source": _build.build_all()})
+    phase_launch_plan(torch.device(DEVICE))
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(launch_plan_only() if sys.argv[1:] == ["launch_plan"] else main())

@@ -29,9 +29,9 @@ import numpy as np
 import torch
 
 from ..core.config import DENSITY_TYPE_LIST, RADII_TYPE_LIST, GridSpec, VoxelizerConfig, small_atom_bucket
-from ..core.transform import RandomTransform, do_random_transform
+from ..core.transform import RandomTransform, do_random_transform, draw_transform_table
 from ..data.staging import PinnedRing, batch_layout, stage_batch, unpinned
-from ..ops.deposit import check_kernel_dtype
+from ..ops.deposit import Transforms, check_kernel_dtype
 from ..ops.voxelize import default_impl, voxelize  # noqa: F401  (default_impl: the JAX package's name here)
 from ..utils.timing import count, recording, span
 
@@ -371,22 +371,20 @@ class Voxelizer:
                 if len(centers) != b:
                     raise ValueError(f"forward_batch has {b} molecules and {len(centers)} centers")
                 centers_in = _host(centers, np.float32).reshape(b, 3)
+        rot, trans = bool(random_rotation), float(random_translation) > 0.0
         with contextlib.ExitStack() as held:  # the ring's slot, given back behind the kernels that read it
-            with span("molvoxel.pad"):  # the one pass that writes the padded batch into its staging buffer
+            with span("molvoxel.pad"):  # the one pass that writes the padded batch and its transforms into the slot
                 vp = small_atom_bucket(int(counts.max()))
                 radii_shape = (tuple(radii_in.shape) if channelwise else (vp,) if isinstance(radii_in, float)
                                else (b, vp))
-                layout = batch_layout(b, vp, num_c, radii_shape, centers_in is not None)
+                layout = batch_layout(b, vp, num_c, radii_shape, centers_in is not None, rot or trans)
                 ring = self._staging_ring(dev)
                 staged = unpinned(layout) if ring is None else held.enter_context(ring.taken(layout))
                 stage_batch(staged.arrays, coords, channels, counts, typed, radii_in, centers_in)
+                if rot or trans:  # the table crosses in the slot's one copy
+                    gen = _generator(key) if key is not None else self.next_generator()
+                    draw_transform_table(gen, b, float(random_translation), rot, out=staged.arrays[-1])
 
-            if key is not None:
-                gen = _generator(key)
-            elif random_rotation or random_translation > 0:
-                gen = self.next_generator()
-            else:
-                gen = None
             with span("molvoxel.copy_in"):
                 tensors = layout.tensors(staged.host) if ring is None else ring.send(staged)
                 if recording():  # counted only while a profiler records: an untraced call pays for no counter
@@ -400,16 +398,14 @@ class Voxelizer:
                 radii_t,
                 mask_t,
                 centers_t,
-                gen,
-                float(random_translation),
                 spec=cfg.grid,
                 density_type=cfg.density_type,
                 sigma=cfg.sigma,
-                random_rotation=bool(random_rotation),
                 channelwise=channelwise,
                 impl=self._impl,
                 radii_batched=isinstance(radii_in, list),
                 out_dtype=out_dtype,
+                transforms=Transforms(tensors[-1] if rot or trans else None, rot, trans),
             )
 
     def _staging_ring(self, dev: torch.device) -> PinnedRing | None:

@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 _PI2 = 2.0 * math.pi
@@ -57,6 +58,54 @@ def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
         torch.stack([2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy)], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+# quaternion_to_matrix's nine entries, row-major, as C + SA * (P[A] + SB * P[B]) over
+# P = 2 q q^T flattened (w, x, y, z = 0..3): 1 - 2 (yy + zz), 2 (xy - wz), ...  Scaling by 2
+# and by -1 is exact, so each entry rounds as quaternion_to_matrix rounds it.
+_ROT_A = np.array([10, 6, 7, 6, 5, 11, 7, 11, 5])
+_ROT_B = np.array([15, 3, 2, 3, 15, 1, 2, 1, 10])
+_ROT_SA = np.array([-1, 1, 1, 1, -1, 1, 1, 1, -1], np.float32)
+_ROT_SB = np.array([1, -1, 1, 1, 1, -1, -1, 1, 1], np.float32)
+_ROT_C = np.array([1, 0, 0, 0, 1, 0, 0, 0, 1], np.float32)
+
+
+def draw_transform_table(generator: torch.Generator, b: int, random_translation: float, random_rotation: bool,
+                         out: np.ndarray | None = None) -> np.ndarray:
+    """A batch's random rigid transforms as one (b, 12) float32 table, each
+    row R row-major then t (a part not drawn is zero), written into ``out``
+    when given.
+
+    The draws are ``random_quaternion``'s and ``random_translation_vector``'s
+    in that order, on a host ``generator``: b x 3 uniforms for the rotations
+    (when ``random_rotation``), then b x 3 for the translations (when
+    ``random_translation`` > 0).  The rest is float32 numpy, but for the
+    square roots, sines and cosines, which torch takes as
+    ``random_quaternion`` does (numpy's round differently in the last bit):
+    Shoemake's quaternion, R as ``quaternion_to_matrix`` builds it, t =
+    (2u - 1) magnitude.  The table equals ``draw_transforms`` followed by
+    ``quaternion_to_matrix`` at a fraction of its small torch ops."""
+    table = np.empty((b, 12), np.float32) if out is None else out
+    if random_rotation:
+        u = torch.rand((b, 3), generator=generator, dtype=torch.float32).numpy()
+        angle = torch.from_numpy(u[:, 1:] * np.float32(_PI2))
+        root = np.empty((b, 2), np.float32)
+        np.subtract(np.float32(1.0), u[:, 0], out=root[:, 0])
+        root[:, 1] = u[:, 0]
+        root = torch.sqrt(torch.from_numpy(root)).numpy()
+        q = np.empty((b, 4), np.float32)  # (w, x, y, z) = (r0 sin a0, r0 cos a0, r1 sin a1, r1 cos a1)
+        np.multiply(root, torch.sin(angle).numpy(), out=q[:, 0::2])
+        np.multiply(root, torch.cos(angle).numpy(), out=q[:, 1::2])
+        p = ((q + q)[:, :, None] * q[:, None, :]).reshape(b, 16)
+        np.add(_ROT_C, _ROT_SA * (p[:, _ROT_A] + _ROT_SB * p[:, _ROT_B]), out=table[:, :9])
+    else:
+        table[:, :9] = 0.0
+    if random_translation > 0.0:
+        u = torch.rand((b, 3), generator=generator, dtype=torch.float32).numpy()
+        np.multiply(u * np.float32(2.0) - np.float32(1.0), np.float32(random_translation), out=table[:, 9:])
+    else:
+        table[:, 9:] = 0.0
+    return table
 
 
 def rotate(coords: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,8 @@ one-hot or feature weights, radii, mask, centers: what ``pad_point_clouds``
 and ``types_to_onehot`` make, bit for bit) into the sections in one pass.
 Where molecules are large each is written by slices; where they are many and
 small, one concatenate and one gather write them all (``GATHER_MAX_ATOMS``).
+The batch's transform table, where it draws one, is a last section of the
+same slot (``batch_layout``), so it crosses in the same copy.
 
 With no profiler recording nothing here counts; while one records,
 ``molvoxel.staging_allocs`` counts slot allocations and growths and
@@ -220,11 +222,13 @@ class PinnedRing:
 
 
 @functools.lru_cache(maxsize=64)
-def batch_layout(b: int, vp: int, c: int, radii_shape: tuple, centers: bool) -> Layout:
+def batch_layout(b: int, vp: int, c: int, radii_shape: tuple, centers: bool, table: bool = False) -> Layout:
     """coords (B, Vp, 3) f32, weights (B, Vp, C) f32, radii (``radii_shape``)
-    f32, mask (B, Vp) bool, and centers (B, 3) f32 when given."""
+    f32, mask (B, Vp) bool, centers (B, 3) f32 when given, and the transform
+    table (B, 12) f32 (``core.transform.draw_transform_table``) last when
+    one is drawn."""
     specs = [((b, vp, 3), np.float32), ((b, vp, c), np.float32), (radii_shape, np.float32), ((b, vp), np.bool_)]
-    return Layout.of(specs + ([((b, 3), np.float32)] if centers else []))
+    return Layout.of(specs + ([((b, 3), np.float32)] if centers else []) + ([((b, 12), np.float32)] if table else []))
 
 
 def stage_batch(arrays: list[np.ndarray], coords: list[np.ndarray], channels: list[np.ndarray],

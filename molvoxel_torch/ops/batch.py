@@ -156,9 +156,10 @@ def voxelize_batch(
       materialize: accepted for the JAX package's signature (there it fences
         XLA's folding of the grid) and ignored: the kernel writes every grid.
       transforms: (quaternions (B, 4) or None, translations (B, 3) or None)
-        drawn beforehand (``draw_transforms``), used in place of drawing from
-        ``generator`` (the sharded paths draw a whole batch once and hand
-        each rank its rows).
+        drawn beforehand (``draw_transforms``), or a ``deposit.Transforms``
+        table, used in place of drawing from ``generator`` (the sharded paths
+        draw a whole batch once and hand each rank its rows;
+        ``Voxelizer.forward_batch`` stages its table with the batch).
     """
     with span("molvoxel.voxelize_batch"):
         check_density(density_type)

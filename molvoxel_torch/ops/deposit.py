@@ -32,7 +32,9 @@ their kernels on CUDA tensors and run ``prepare_plain`` / ``deposit_plain``
 tensors.  Nothing on a CUDA tensor falls back to a plain version: a failed
 build or launch raises.  The wrappers below go through ``ops.autodiff``
 (``prepare`` and ``deposit``), so they are differentiable in coordinates,
-weights, radii and centers.
+weights, radii and centers; on the card, inputs that need no gradient take
+their batch shape's ``LaunchPlan`` instead: both launches with arguments
+worked out once a shape, and no autograd Function.
 """
 
 from __future__ import annotations
@@ -997,6 +999,41 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def prep_args(b: int, v: int, c: int, radii_mode: int, rot: bool, trans: bool, plan: PrepPlan, wide: int) -> tuple:
+    """The preparation launch's arguments between its ten tensors and the
+    stream (``deposit_prep`` in deposit_prep.cu), for B molecules of V
+    atoms and C channels on a card that runs ``wide`` 16-block clusters;
+    ``radii_mode`` 0 shared (V,), 1 per molecule (B, V), 2 per channel (C,).
+    Its outputs' shapes follow from it (``prep_shapes``)."""
+    spec = plan.spec
+    dim = spec.dimension
+    vp = round_up(v, CHUNK)
+    vo = c * vp if plan.channelwise else vp
+    dl = dim if plan.d_count is None else plan.d_count
+    ht = brick_rows(b, c, dl, dim)[1]
+    nht = -(-dim // ht)
+    sort = plan.sort and vp > CHUNK
+    res = float(spec.resolution)
+    scale = ((1 << 5) - 1) / max(spec.width, 1e-6)  # morton_keys' scale
+    launch = prep_launch(b, vp, vo, nht, sort, wide)
+    return (b, v, vp, c, vo, dl, dim, ht, nht, launch.split, launch.cpb, launch.seg, launch.oseg, radii_mode,
+            int(rot), int(trans), int(sort), int(plan.channelwise), int(plan.gaussian), int(plan.notrunc),
+            float(spec.lower_bound), float(spec.upper_bound), scale, res, float(np.float32(1.0) / np.float32(res)),
+            float(np.float32(plan.d_offset) * np.float32(res)), float((ht - 1) * res),
+            -(0.5 / (plan.sigma * plan.sigma)), notrunc_factor(plan.sigma), launch.threads, launch.smem)
+
+
+def prep_shapes(args: tuple) -> tuple:
+    """The shapes of a preparation's rows, weights, ranges and permutation
+    for its ``prep_args``, and its local depth Dl."""
+    b, _, vp, c, vo, dl, _, _, nht = args[:9]
+    return (b, 8, vo), (b, c, vo), (b, nht, vo // CHUNK, 2), (b, vp), dl
+
+
+def _radii_mode(radii, plan: PrepPlan) -> int:
+    return 2 if plan.channelwise else 1 if radii.ndim == 2 else 0
+
+
 def deposit_prep(coords, weights, radii, mask, centers, transforms: Transforms, plan: PrepPlan) -> Prepared:
     """Prepare a deposit: the arguments and result of ``prepare_plain``.
 
@@ -1010,40 +1047,146 @@ def deposit_prep(coords, weights, radii, mask, centers, transforms: Transforms, 
     table = None if transforms.table is None else transforms.table.to(torch.float32)
     _check_prep_inputs(coords, weights, radii, mask, centers, table, plan)
     b, v, _ = coords.shape
-    c = weights.shape[2]
-    spec = plan.spec
-    dim = spec.dimension
     dev = coords.device
-    vp = round_up(v, CHUNK)
-    vo = c * vp if plan.channelwise else vp
-    dl = dim if plan.d_count is None else plan.d_count
-    ht = brick_rows(b, c, dl, dim)[1]
-    nht = -(-dim // ht)
-    sort = plan.sort and vp > CHUNK
-    radii_mode = 2 if plan.channelwise else 1 if radii.ndim == 2 else 0
-    lb, res = float(spec.lower_bound), float(spec.resolution)
-    scale = ((1 << 5) - 1) / max(spec.width, 1e-6)  # morton_keys' scale
     lib = _kernel_lib("deposit_prep")
-    launch = prep_launch(b, vp, vo, nht, sort, _prep_wide_clusters(lib, dev))
+    args = prep_args(b, v, weights.shape[2], _radii_mode(radii, plan), transforms.rot, transforms.trans, plan,
+                     _prep_wide_clusters(lib, dev))
+    *shapes, dl = prep_shapes(args)
+    dtypes = (torch.float32, torch.float32, torch.int32, torch.int32)
+    rows, wt, ranges, perm = (torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in zip(shapes, dtypes))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rows = torch.empty((b, 8, vo), dtype=torch.float32, device=dev)
-    wt = torch.empty((b, c, vo), dtype=torch.float32, device=dev)
-    ranges = torch.empty((b, nht, vo // CHUNK, 2), dtype=torch.int32, device=dev)
-    perm = torch.empty((b, vp), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.deposit_prep(
             coords.data_ptr(), weights.data_ptr(), radii.data_ptr(), _ptr(mask), _ptr(centers), _ptr(table),
-            rows.data_ptr(), wt.data_ptr(), ranges.data_ptr(), perm.data_ptr(),
-            b, v, vp, c, vo, dl, dim, ht, nht, launch.split, launch.cpb, launch.seg, launch.oseg, radii_mode,
-            int(transforms.rot), int(transforms.trans), int(sort), int(plan.channelwise), int(plan.gaussian),
-            int(plan.notrunc), lb, float(spec.upper_bound), scale, res, float(np.float32(1.0) / np.float32(res)),
-            float(np.float32(plan.d_offset) * np.float32(res)), float((ht - 1) * res),
-            -(0.5 / (plan.sigma * plan.sigma)), notrunc_factor(plan.sigma), launch.threads, launch.smem, stream,
-        )
+            rows.data_ptr(), wt.data_ptr(), ranges.data_ptr(), perm.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"deposit_prep kernel launch failed with cudaError {rc}")
     launches["deposit_prep"] += 1
     return _count_sort(Prepared(rows, wt, ranges, perm, dl), plan)
+
+
+# ------------------------------------------------------------ launch plans
+
+
+def _knobs() -> tuple:
+    """The module's launch constants, part of every launch plan's key: a
+    tool that sets one (a sweep) gets plans of the new value."""
+    return (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES, TARGET_BLOCKS, MIN_LANES, PREP_MAX_THREADS, PREP_SEARCH_SHARE,
+            PREP_ITEMS, PREP_SORT_THREADS, PREP_MAX_CLUSTER, PREP_MIN_SHARE, PREP_PAIR_THREADS, PREP_STAGE,
+            PREP_TARGET_BLOCKS, NOTRUNC_SIDE, NOTRUNC_WARP_CAP, NOTRUNC_BLOCK_WARPS, NOTRUNC_TARGET_BLOCKS)
+
+
+def _launch(index: int, fn, *args) -> int:
+    """``fn(*args)`` with the card ``index`` current (entered only when it is not)."""
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
+_ALIGN_WORDS = 128  # 4-byte words: each output of a planned preparation starts on a 512-byte boundary
+
+
+class LaunchPlan:
+    """One batch shape's preparation and forward launch, for inputs that
+    need no gradient (``prepare_batch`` and ``voxelize_deposit_batch``; the
+    autograd Functions of ops/autodiff.py take the rest).
+
+    Built once a key (``_prepare``: devices, shapes, transform flags, the
+    ``PrepPlan``, output dtype and the launch constants): the kernels'
+    input checks run then, and the plan keeps the arguments of both
+    launches but the data pointers and the stream.  A preparation writes
+    its rows, weights, ranges and permutation into one allocation of
+    ``words`` 4-byte words (``prepare``), which the forward reads by
+    offsets (``forward``: it allocates only the grid) and ``outputs`` cuts
+    into tensors.  ``fwd`` is None for a plan of a preparation alone
+    (``prepare_batch``)."""
+
+    __slots__ = ("index", "prep", "rot", "trans", "args", "parts", "words", "offsets", "sort_slots", "fwd", "grid",
+                 "out_dtype", "grid_bytes")
+
+    def __init__(self, coords, weights, radii, mask, centers, table, rot: bool, trans: bool, prep: PrepPlan,
+                 out_dtype: torch.dtype | None):
+        _check_prep_inputs(coords, weights, radii, mask, centers, table, prep)
+        b, v, _ = coords.shape
+        c = weights.shape[2]
+        self.index, self.prep, self.rot, self.trans = coords.get_device(), prep, rot, trans
+        self.args = prep_args(b, v, c, _radii_mode(radii, prep), rot, trans, prep,
+                              _prep_wide_clusters(_kernel_lib("deposit_prep"), coords.device))
+        *shapes, dl = prep_shapes(self.args)
+        parts, start = [], 0
+        for shape in shapes:  # (shape, contiguous strides, first word)
+            parts.append((shape, tuple(math.prod(shape[k + 1:]) for k in range(len(shape))), start))
+            start += round_up(math.prod(shape), _ALIGN_WORDS)
+        self.parts, self.words = tuple(parts), start
+        self.offsets = tuple(4 * first for _, _, first in parts)
+        vp, vo = shapes[3][1], shapes[0][2]
+        self.sort_slots = b * vp if prep.sort and vp > CHUNK else 0
+        self.fwd, self.grid, self.out_dtype, self.grid_bytes = None, None, out_dtype, 0
+        if out_dtype is not None:
+            dim = prep.spec.dimension
+            self.fwd = fwd_launch(b, vo, c, dl, prep.spec, prep.gaussian, out_dtype, prep.notrunc)
+            self.grid = (b, c, dl, dim, dim)
+            self.grid_bytes = math.prod(self.grid) * out_dtype.itemsize
+
+    def prepare(self, coords, weights, radii, mask, centers, table) -> torch.Tensor:
+        """The preparation launch on inputs of the plan's key -> its outputs'
+        one allocation."""
+        words = torch.empty(self.words, dtype=torch.float32, device=coords.device)
+        base = words.data_ptr()
+        rc = _launch(self.index, _kernel_lib("deposit_prep").deposit_prep,
+                     coords.data_ptr(), weights.data_ptr(), radii.data_ptr(), _ptr(mask), _ptr(centers), _ptr(table),
+                     *(base + offset for offset in self.offsets), *self.args, _raw_stream(self.index))
+        if rc != 0:
+            raise RuntimeError(f"deposit_prep kernel launch failed with cudaError {rc}")
+        launches["deposit_prep"] += 1
+        if recording():
+            count("molvoxel.plan_launches")
+            count("molvoxel.sort_slots", self.sort_slots)
+        return words
+
+    def outputs(self, words: torch.Tensor) -> Prepared:
+        """A preparation's rows, weights, ranges and permutation: views of ``words``."""
+        ints = words.view(torch.int32)
+        rows, wt = (words.as_strided(*part) for part in self.parts[:2])
+        ranges, perm = (ints.as_strided(*part) for part in self.parts[2:])
+        return Prepared(rows, wt, ranges, perm, self.args[5])
+
+    def forward(self, words: torch.Tensor) -> torch.Tensor:
+        """The forward launch on this plan's preparation ``words`` -> (B, C, Dl, H, W)."""
+        out = torch.empty(self.grid, dtype=self.out_dtype, device=words.device)
+        base = words.data_ptr()
+        entry, args = self.fwd
+        rc = _launch(self.index, getattr(_kernel_lib("deposit_fwd"), entry),
+                     *(base + offset for offset in self.offsets[:3]), out.data_ptr(), *args, _raw_stream(self.index))
+        if rc != 0:
+            raise RuntimeError(f"deposit_fwd kernel launch failed with cudaError {rc}")
+        launches[entry] += 1
+        if recording():
+            count("molvoxel.grid_bytes", self.grid_bytes)
+        return out
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream's handle on card ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+_PLANS: dict = {}
+_PLANS_MAX = 256  # plans kept at once: the cache starts over when full
+
+
+def _f32(t: torch.Tensor, dev: torch.device | None = None) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor, moved to ``dev`` when given
+    (itself when it is one already)."""
+    if t.dtype is torch.float32 and t.is_contiguous() and (dev is None or t.device == dev):
+        return t
+    return t.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd records and any of ``tensors`` requires a gradient."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 # ------------------------------------------------------------- wrappers
@@ -1068,29 +1211,82 @@ def prepare_batch(coords, weights, radii, *, spec: GridSpec, density_type: str =
                   transforms=None, channelwise: bool = False):
     """Padded, sorted kernel inputs for a batch: (rows, weights, ranges, Dl,
     gaussian), exactly what voxelize_deposit_batch hands to the kernels,
-    from one preparation (``ops.autodiff.prepare``: the kernel on CUDA
-    tensors, ``prepare_plain`` on CPU ones).  ``centers`` (B, 3) are
-    subtracted and ``transforms`` (``draw_transforms``' pair or a
-    ``Transforms``) applied first; the Morton keys come from the centered
-    coordinates, or with ``channelwise`` radii (C,) from the transformed
-    ones (each caller's order of sort and transform)."""
+    from one preparation: on the card and with no input that needs a
+    gradient, launched by the shape's ``LaunchPlan``; else through
+    ``ops.autodiff.prepare`` (the kernel on CUDA tensors, ``prepare_plain``
+    on CPU ones).  ``centers`` (B, 3) are subtracted and ``transforms``
+    (``draw_transforms``' pair or a ``Transforms``) applied first; the
+    Morton keys come from the centered coordinates, or with ``channelwise``
+    radii (C,) from the transformed ones (each caller's order of sort and
+    transform)."""
+    lp, out = _prepare(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, presorted,
+                       centers, transforms, channelwise, None)
+    if lp is None:
+        return out
+    rows, wt, ranges, _, dl = lp.outputs(out)
+    return rows, wt, ranges, dl, lp.prep.gaussian
+
+
+def _prepare(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, presorted, centers,
+             transforms, channelwise, out_dtype):
+    """A batch's preparation -> (None, ``prepare_batch``'s tuple) on the
+    autograd route, or (its launch plan, the plan's outputs in one
+    allocation), the plan holding the forward when ``out_dtype`` is
+    given."""
     from .autodiff import prepare  # autodiff imports this module
 
     with span("molvoxel.prepare"):
         gaussian = check_density(density_type)
-        check_kernel_dtype(coords.is_cuda, coords.dtype)
         dev = coords.device
-        radii = torch.as_tensor(radii, dtype=torch.float32, device=dev)
+        check_kernel_dtype(dev.type == "cuda", coords.dtype)
+        radii = _f32(radii, dev) if isinstance(radii, torch.Tensor) else torch.as_tensor(
+            radii, dtype=torch.float32, device=dev)
         if radii.ndim == 0:
-            radii = radii.expand(coords.shape[1])
+            radii = radii.expand(coords.shape[1]).contiguous()
+        transforms = transform_table(transforms, dev)
+        coords, weights = _f32(coords), _f32(weights)
+        centers = None if centers is None else _f32(centers, dev)
+        mask = None if mask is None else mask.contiguous()
         plan = PrepPlan(spec, gaussian, sigma, notrunc=density_type == "gaussian_notrunc", d_offset=d_offset,
                         d_count=d_count, sort=not presorted, channelwise=channelwise)
-        rows, wt, ranges, dl = prepare(
-            coords.to(torch.float32).contiguous(), weights.to(torch.float32).contiguous(), radii.contiguous(),
-            None if mask is None else mask.contiguous(),
-            None if centers is None else centers.to(device=dev, dtype=torch.float32).contiguous(),
-            transform_table(transforms, dev), plan)
-        return rows, wt, ranges, dl, gaussian
+        if dev.type == "cpu" or _needs_grad(coords, weights, radii, centers, transforms.table):
+            rows, wt, ranges, dl = prepare(coords, weights, radii, mask, centers, transforms, plan)
+            return None, (rows, wt, ranges, dl, gaussian)
+        table = None if transforms.table is None else _f32(transforms.table)
+        key = (coords.get_device(), coords.shape, weights.get_device(), weights.shape, radii.shape,
+               None if mask is None else (mask.get_device(), mask.shape, mask.dtype),
+               None if centers is None else centers.shape,
+               None if table is None else (table.get_device(), table.shape), transforms.rot, transforms.trans, plan,
+               out_dtype, _knobs())
+        lp = _PLANS.get(key)
+        if lp is None:
+            lp = LaunchPlan(coords, weights, radii, mask, centers, table, transforms.rot, transforms.trans, plan,
+                            out_dtype)
+            if len(_PLANS) >= _PLANS_MAX:
+                _PLANS.clear()
+            _PLANS[key] = lp
+            count("molvoxel.plan_builds")
+        return lp, lp.prepare(coords, weights, radii, mask, centers, table)
+
+
+def _deposit_batch(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, out_dtype, presorted,
+                   centers, transforms, channelwise) -> torch.Tensor:
+    """``voxelize_deposit_batch`` (``channelwise``: its channel-wise form):
+    the plan's forward launch where the preparation took a plan, else
+    ``ops.autodiff.deposit``."""
+    from .autodiff import deposit  # autodiff imports this module
+
+    odt = out_torch_dtype(out_dtype)
+    lp, out = _prepare(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, presorted, centers,
+                       transforms, channelwise, odt)
+    if lp is not None:
+        with span("molvoxel.deposit"):
+            return lp.forward(out)
+    rows, wt, ranges, dl, gaussian = out
+    b, c = wt.shape[:2]
+    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=odt,
+                  notrunc=density_type == "gaussian_notrunc")
+    return out.reshape(b, c, dl, spec.dimension, spec.dimension)
 
 
 def voxelize_deposit_batch(coords, weights, radii, *, spec: GridSpec, density_type: str = "gaussian",
@@ -1106,19 +1302,13 @@ def voxelize_deposit_batch(coords, weights, radii, *, spec: GridSpec, density_ty
     arrive in Morton order, so no sort.  Differentiable in coords, weights,
     radii, centers and the transforms' quaternions and translations: the
     preparation and forward kernels run forward, the backward kernel and
-    the preparation's explicit VJP backward.
+    the preparation's explicit VJP backward.  Where no input needs a
+    gradient, the shape's ``LaunchPlan`` launches both kernels, with no
+    autograd Function.
     Counterpart of voxelize_pallas_batch and its custom VJP
     (voxelize_pallas_bwd_batch)."""
-    from .autodiff import deposit  # autodiff imports this module
-
-    b, _, c = weights.shape
-    rows, wt, ranges, dl, gaussian = prepare_batch(
-        coords, weights, radii, spec=spec, density_type=density_type, sigma=sigma, mask=mask,
-        d_offset=d_offset, d_count=d_count, presorted=presorted, centers=centers, transforms=transforms,
-    )
-    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype),
-                  notrunc=density_type == "gaussian_notrunc")
-    return out.reshape(b, c, dl, spec.dimension, spec.dimension)
+    return _deposit_batch(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, out_dtype,
+                          presorted, centers, transforms, False)
 
 
 def expand_channelwise(coords, weights, radii, mask):
@@ -1147,17 +1337,8 @@ def voxelize_deposit_batch_channelwise(coords, weights, radii, *, spec: GridSpec
     (``expand_channelwise``), so each virtual chunk is single-channel and
     spatially local; one preparation does all of it.  Counterpart of
     voxelize_pallas_batch_channelwise."""
-    from .autodiff import deposit  # autodiff imports this module
-
-    b, _, c = weights.shape
-    rows, wt, ranges, dl, gaussian = prepare_batch(
-        coords, weights, radii, spec=spec, density_type=density_type, sigma=sigma, mask=mask,
-        d_offset=d_offset, d_count=d_count, presorted=presorted, centers=centers, transforms=transforms,
-        channelwise=True,
-    )
-    out = deposit(rows, wt, ranges, spec=spec, dl=dl, gaussian=gaussian, out_dtype=out_torch_dtype(out_dtype),
-                  notrunc=density_type == "gaussian_notrunc")
-    return out.reshape(b, c, dl, spec.dimension, spec.dimension)
+    return _deposit_batch(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, out_dtype,
+                          presorted, centers, transforms, True)
 
 
 def voxelize_deposit(coords, weights, radii, *, spec: GridSpec, density_type: str = "gaussian", sigma: float = 0.5,

@@ -196,8 +196,9 @@ def test_copy_in_bytes_of_a_known_batch():
     with cpu_profile():
         call(vox, 0, centers=True)
     with_centers = timing.snapshot()["counters"]["molvoxel.copy_in_bytes"]
-    # coords (B, V, 3) f32, one-hot weights (B, V, C) f32, radii (V,) f32, mask (B, V) bool, centers (B, 3) f32
-    assert with_centers == B * V * 3 * 4 + B * V * C * 4 + V * 4 + B * V + B * 3 * 4
+    # coords (B, V, 3) f32, one-hot weights (B, V, C) f32, radii (V,) f32, mask (B, V) bool, centers (B, 3) f32,
+    # the drawn transforms' table (B, 12) f32
+    assert with_centers == B * V * 3 * 4 + B * V * C * 4 + V * 4 + B * V + B * 3 * 4 + B * 12 * 4
     call(vox, 1)
     with cpu_profile():
         call(vox, 0, centers=False)

@@ -14,7 +14,10 @@ reads it with ``portbench/timeline.py``:
   launching thread, with the names of those that were not;
 - ``host_s``: the window's host time by innermost ``molvoxel.*`` span;
 - ``counters``: the port's counters in the window (``timing.snapshot``):
-  the bytes copied in, the staging ring's allocations and waits.
+  the bytes copied in, the grids' bytes, the slots sorted, ...;
+- ``staging_and_plans``: the staging ring's allocations and waits and the
+  launch plans built and launched in the window (0 where none counted),
+  beside the window's preparations (span ``molvoxel.prepare``).
 
 Prints one JSON line (``result`` is the run's own result line) and writes it
 to ``--out`` when given.  Needs a CUDA device.
@@ -157,8 +160,13 @@ def main(argv=None) -> int:
     timeline.Timeline.load = classmethod(load)
     from molvoxel_torch.utils.timing import snapshot
 
+    snap = snapshot()
+    named = ("staging_allocs", "staging_waits", "plan_builds", "plan_launches")
     line = {"workload": args.workload, "seed": args.seed, **split(kept["events"], kept["timeline"]),
-            "counters": snapshot()["counters"], "result": result}
+            "counters": snap["counters"],
+            "staging_and_plans": {**{n: snap["counters"].get(PREFIX + n, 0) for n in named},
+                                  "preparations": snap["spans"].get(PREFIX + "prepare", {}).get("count", 0)},
+            "result": result}
     text = json.dumps(line)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

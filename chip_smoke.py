@@ -849,7 +849,7 @@ def prep_timing(case: str, inputs, plan, plain, launches: int, floor_ms: float) 
 
 def phase_prep_profile(cases, plain) -> list:
     """prep_profile: each (case, fn) call with the plain preparation
-    (``plain`` in place of the kernel wrapper) and with the kernel, in
+    (``plain`` in place of the launch plans' kernel launch) and with the kernel, in
     turns (plain, kernel, kernel, plain): its host-clock ms (median of 7
     after 2 warm-ups, ending in a synchronize); then 7 more calls under
     torch.profiler: the device work a call (kernels launched, copies, and
@@ -860,14 +860,11 @@ def phase_prep_profile(cases, plain) -> list:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from molvoxel_torch.ops import autodiff, deposit
+    from molvoxel_torch.ops import deposit
     from molvoxel_torch.utils import timing
 
-    kernel_prep, plan_prep = autodiff.deposit_prep, deposit.LaunchPlan.prepare
+    plan_prep = deposit.LaunchPlan.prepare
     calls = 7
-
-    def with_plain(*args):
-        return plain(*args)
 
     def plan_with_plain(lp, coords, weights, radii, mask, centers, table):  # the plans' route, plain (and 4 copies)
         got = plain(coords, weights, radii, mask, centers, deposit.Transforms(table, lp.rot, lp.trans), lp.prep)
@@ -879,7 +876,6 @@ def phase_prep_profile(cases, plain) -> list:
     lines = []
     for case, fn in cases:
         for mode in ("plain", "kernel", "kernel", "plain"):
-            autodiff.deposit_prep = with_plain if mode == "plain" else kernel_prep
             deposit.LaunchPlan.prepare = plan_with_plain if mode == "plain" else plan_prep
             try:
                 fn()
@@ -899,7 +895,7 @@ def phase_prep_profile(cases, plain) -> list:
                 record = timing.snapshot()
                 launched = {k: (n - before[k]) / calls for k, n in deposit.launches.items() if n != before[k]}
             finally:
-                autodiff.deposit_prep, deposit.LaunchPlan.prepare = kernel_prep, plan_prep
+                deposit.LaunchPlan.prepare = plan_prep
             # the port's spans also lie on the device's timeline, as user annotations: not work
             device = [e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
@@ -1045,8 +1041,8 @@ def phase_launch_plan(dev) -> list:
 
     - one staged batch and transform table through both routes
       (``voxelize_batch`` under ``torch.no_grad()``, and with coordinates
-      that need a gradient): grids bit for bit, one plan launch on the
-      first and none on the second;
+      that need a gradient): grids bit for bit, and one plan launch on
+      each (the Functions wrap the plan's preparation);
     - 8 calls of ``forward_batch`` (its table from ``draw_transform_table``
       in the staging slot) against the autograd route fed the draw chain
       ``draw_transforms`` + ``transform_table`` from the same key: grids
@@ -1129,7 +1125,7 @@ def phase_launch_plan(dev) -> list:
         per_call = {name: counts.get(f"molvoxel.{name}", 0) / len(calls)
                     for name in ("plan_builds", "plan_launches", "staging_allocs", "staging_waits")}
         host_bound = cell != "protein128.batch16"
-        ok = (same_table and routes == (1, 0) and max(diffs) <= 1e-6 and per_call["plan_builds"] == 0
+        ok = (same_table and routes == (1, 1) and max(diffs) <= 1e-6 and per_call["plan_builds"] == 0
               and per_call["plan_launches"] == 1 and per_call["staging_allocs"] == 0
               and (per_call["staging_waits"] == 0 or not host_bound))
         line = {"phase": "launch_plan", "cell": cell, "same_table_bit_for_bit": same_table,

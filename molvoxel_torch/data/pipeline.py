@@ -1,8 +1,9 @@
 """Host-side batching: ragged molecules -> padded fixed-shape batches.
 
-A numpy copy of the JAX package's pipeline: variable-size point clouds are
-padded into bucketed (B, Vp, ...) arrays plus validity masks that feed
-``ops.batch.voxelize_batch`` and the stream (``parallel/stream.py``).
+The JAX package's pipeline in numpy: variable-size point clouds are padded
+into bucketed (B, Vp, ...) arrays plus validity masks that feed
+``ops.batch.voxelize_batch`` and the stream (``parallel/stream.py``), by the
+one writer of that layout ``forward_batch`` uses (``data/staging.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from collections.abc import Iterable, Iterator, Sequence
 import numpy as np
 
 from ..core.config import small_atom_bucket
+from .staging import batch_layout, stage_batch, unpinned
 
 
 @dataclasses.dataclass
@@ -56,38 +58,31 @@ def pad_point_clouds(
 
     Vp is ``small_atom_bucket(max V_i)`` unless ``bucket`` is given.  Padded
     atoms get zero weights, radius 1 and mask False: they deposit nothing.
+    The batch is ``data.staging.stage_batch``'s (``forward_batch``'s)
+    layout, written by it into one fresh buffer; its arrays are views of
+    the buffer's sections.
     """
     if len(clouds) == 0:
         raise ValueError("pad_point_clouds needs at least one cloud")
     c = clouds[0][1].shape[1]
-    vmax = max(crd.shape[0] for crd, _ in clouds)
+    counts = np.array([crd.shape[0] for crd, _ in clouds], np.int32)
+    vmax = int(counts.max())
     vp = bucket if bucket is not None else small_atom_bucket(vmax)
     if vp < vmax:
         raise ValueError(f"bucket {vp} smaller than max atom count {vmax}")
     b = len(clouds)
-
-    coords = np.zeros((b, vp, 3), np.float32)
-    weights = np.zeros((b, vp, c), np.float32)
-    mask = np.zeros((b, vp), bool)
-    num_atoms = np.zeros((b,), np.int32)
-    radii_arr = None
-    if radii is not None:
-        radii_arr = np.ones((b, vp), np.float32)
-
-    for i, (crd, w) in enumerate(clouds):
-        v = crd.shape[0]
-        coords[i, :v] = crd
-        weights[i, :v] = w
-        mask[i, :v] = True
-        num_atoms[i] = v
-        if radii is not None:
-            radii_arr[i, :v] = np.broadcast_to(np.asarray(radii[i], np.float32), (v,))
-
-    centers_arr = None
+    if radii is not None:  # per molecule, as (V_i,) float32
+        radii = [np.broadcast_to(np.asarray(radii[i], np.float32), (v,)) for i, v in enumerate(counts)]
     if centers is not None:
-        centers_arr = np.stack([np.asarray(ce, np.float32).reshape(3) for ce in centers])
-
-    return PaddedBatch(coords, weights, mask, radii_arr, centers_arr, num_atoms)
+        centers = np.stack([np.asarray(ce, np.float32).reshape(3) for ce in centers])
+    layout = batch_layout(b, vp, c, (0,) if radii is None else (b, vp), centers is not None)  # (0,): no radii
+    arrays = unpinned(layout).arrays
+    stage_batch(arrays, [np.asarray(crd, np.float32) for crd, _ in clouds],
+                [np.asarray(w, np.float32) for _, w in clouds], counts, False, 1.0 if radii is None else radii,
+                centers)
+    coords, weights, radii_arr, mask = arrays[:4]
+    return PaddedBatch(coords, weights, mask, None if radii is None else radii_arr,
+                       None if centers is None else arrays[4], counts)
 
 
 def types_to_onehot(types: np.ndarray, num_channels: int) -> np.ndarray:

@@ -7,9 +7,10 @@ and the fold of the channel-wise virtual atoms.  Here two Functions cover
 the two steps that have kernels:
 
 - ``PrepareFunction``: (coords, weights, radii, centers, transform table)
-  -> (atom rows, weights, plane ranges, permutation).  Its forward is
-  ``deposit_prep`` (the kernel on the card, ``prepare_plain`` on the
-  CPU); its backward is one explicit torch function on both devices,
+  -> (atom rows, weights, plane ranges, permutation).  Its forward is the
+  preparation launch of the batch shape's ``deposit.LaunchPlan`` on the
+  card, ``deposit_prep`` without one (``prepare_plain`` on the CPU); its
+  backward is one explicit torch function on both devices,
   ``prepare_backward``: the slab shift, the threshold row and coef back to
   the radii, the mask, the channel-wise fold, the inverse permutation, the
   padding, the transform (the table's gradient, and the coordinates'
@@ -112,11 +113,15 @@ def prepare_backward(g_rows, g_wt, perm, radii, mask, transforms: Transforms, pl
 class PrepareFunction(torch.autograd.Function):
     """(coords (B, V, 3), weights (B, V, C), radii, centers (B, 3) or None,
     transform table (B, 12) or None) -> (rows (B, 8, Vo), weights (B, C,
-    Vo), ranges, permutation (B, Vp))."""
+    Vo), ranges, permutation (B, Vp)); ``lp``, the batch shape's launch
+    plan, launches the preparation where given."""
 
     @staticmethod
-    def forward(ctx, coords, weights, radii, centers, table, mask, transforms, plan):
-        out = deposit_prep(coords, weights, radii, mask, centers, transforms, plan)
+    def forward(ctx, coords, weights, radii, centers, table, mask, transforms, plan, lp):
+        if lp is None:
+            out = deposit_prep(coords, weights, radii, mask, centers, transforms, plan)
+        else:
+            out = lp.outputs(lp.prepare(coords, weights, radii, mask, centers, table))
         ctx.mark_non_differentiable(out.ranges, out.perm)
         ctx.save_for_backward(radii, mask, out.perm, coords, centers)
         ctx.transforms, ctx.plan, ctx.v = transforms, plan, coords.shape[1]
@@ -128,14 +133,14 @@ class PrepareFunction(torch.autograd.Function):
         radii, mask, perm, coords, centers = ctx.saved_tensors
         grads = prepare_backward(g_rows, g_wt, perm, radii, mask, ctx.transforms, ctx.plan, ctx.v,
                                  needs=tuple(ctx.needs_input_grad[:5]), coords=coords, centers=centers)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def prepare(coords, weights, radii, mask, centers, transforms: Transforms, plan: PrepPlan):
     """``deposit_prep``, differentiable in coords, weights, radii, centers
     and the transform table -> (rows, weights, ranges, Dl)."""
     rows, wt, ranges, _ = PrepareFunction.apply(coords, weights, radii, centers, transforms.table, mask, transforms,
-                                                plan)
+                                                plan, None)
     return rows, wt, ranges, plan.spec.dimension if plan.d_count is None else plan.d_count
 
 

@@ -32,9 +32,10 @@ their kernels on CUDA tensors and run ``prepare_plain`` / ``deposit_plain``
 tensors.  Nothing on a CUDA tensor falls back to a plain version: a failed
 build or launch raises.  The wrappers below go through ``ops.autodiff``
 (``prepare`` and ``deposit``), so they are differentiable in coordinates,
-weights, radii and centers; on the card, inputs that need no gradient take
-their batch shape's ``LaunchPlan`` instead: both launches with arguments
-worked out once a shape, and no autograd Function.
+weights, radii and centers.  On the card every preparation launches
+through its batch shape's ``LaunchPlan`` (arguments worked out once a
+shape); inputs that need no gradient take the plan's forward launch too,
+and no autograd Function.
 """
 
 from __future__ import annotations
@@ -104,10 +105,12 @@ def _count_grid(out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _count_sort(out: Prepared, plan: PrepPlan) -> Prepared:
-    if recording():
-        count("molvoxel.sort_slots", out.perm.numel() if plan.sort and out.perm.shape[1] > CHUNK else 0)
-    return out
+def _count_prep(sort_slots: int, planned: bool) -> None:
+    """Count a preparation, while a profiler records: the slots it sorts,
+    and whether a launch plan launched it."""
+    count("molvoxel.sort_slots", sort_slots)
+    if planned:
+        count("molvoxel.plan_launches")
 
 
 def out_torch_dtype(out_dtype) -> torch.dtype:
@@ -736,11 +739,17 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
     if ranges.dtype != torch.int32 or not ranges.is_contiguous() or ranges.device != rows.device:
         raise ValueError(f"ranges must be a contiguous torch.int32 tensor on {rows.device}")
     out = torch.empty((b, c, dl, dim * dim), dtype=out_dtype, device=rows.device)
-    entry, args = fwd_launch(b, vp, c, dl, spec, gaussian, out_dtype, notrunc)
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
-    with torch.cuda.device(rows.device):
-        rc = getattr(_kernel_lib("deposit_fwd"), entry)(
-            rows.data_ptr(), weights.data_ptr(), ranges.data_ptr(), out.data_ptr(), *args, stream)
+    return _launch_fwd(rows.get_device(), fwd_launch(b, vp, c, dl, spec, gaussian, out_dtype, notrunc), out,
+                       rows.data_ptr(), weights.data_ptr(), ranges.data_ptr())
+
+
+def _launch_fwd(index: int, fwd: tuple, out: torch.Tensor, rows: int, weights: int, ranges: int) -> torch.Tensor:
+    """deposit_fwd.cu's launch ``fwd`` (``fwd_launch``'s entry point and
+    arguments) on card ``index``'s current stream, from the addresses of
+    the rows, weights and ranges into ``out`` -> ``out``."""
+    entry, args = fwd
+    rc = _launch(index, getattr(_kernel_lib("deposit_fwd"), entry), rows, weights, ranges, out.data_ptr(), *args,
+                 _raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"deposit_fwd kernel launch failed with cudaError {rc}")
     launches[entry] += 1
@@ -856,10 +865,9 @@ def deposit_bwd(rows: torch.Tensor, weights: torch.Tensor, ct: torch.Tensor, *, 
     grad_w = torch.empty((b, c, vp), dtype=torch.float32, device=rows.device)
     aligned = ct.data_ptr() % (4 * ct.element_size()) == 0  # the threshold-row kernel's vector loads
     entry, args = bwd_launch(b, vp, c, dl, spec, gaussian, ct.dtype, notrunc and aligned)
-    with torch.cuda.device(rows.device):
-        rc = getattr(_kernel_lib("deposit_bwd"), entry)(
-            rows.data_ptr(), weights.data_ptr(), ct.data_ptr(), grad_rows.data_ptr(), grad_w.data_ptr(), *args,
-            torch.cuda.current_stream(rows.device).cuda_stream)
+    index = rows.get_device()
+    rc = _launch(index, getattr(_kernel_lib("deposit_bwd"), entry), rows.data_ptr(), weights.data_ptr(),
+                 ct.data_ptr(), grad_rows.data_ptr(), grad_w.data_ptr(), *args, _raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"deposit_bwd kernel launch failed with cudaError {rc}")
     launches[entry] += 1
@@ -1037,43 +1045,23 @@ def _radii_mode(radii, plan: PrepPlan) -> int:
 def deposit_prep(coords, weights, radii, mask, centers, transforms: Transforms, plan: PrepPlan) -> Prepared:
     """Prepare a deposit: the arguments and result of ``prepare_plain``.
 
-    CUDA tensors launch ``csrc/deposit_prep.cu``'s preparation kernel once
-    (counted as ``deposit_prep``), at every size up to 65,536 atoms a
-    molecule: each molecule that sorts is one cluster of blocks
-    (``prep_launch``).  CPU tensors run ``prepare_plain``.  Nothing here
-    synchronises the host.  Raises on anything the kernel does not take."""
+    CUDA tensors (contiguous float32, the mask bool; checked when their
+    shape's plan is built) launch ``csrc/deposit_prep.cu``'s preparation
+    kernel once, through the batch shape's ``LaunchPlan``, at every size up
+    to 65,536 atoms a molecule: each molecule that sorts is one cluster of
+    blocks (``prep_launch``).  CPU tensors run ``prepare_plain``.  Nothing
+    here synchronises the host."""
     if coords.device.type == "cpu":
-        return _count_sort(prepare_plain(coords, weights, radii, mask, centers, transforms, plan), plan)
+        out = prepare_plain(coords, weights, radii, mask, centers, transforms, plan)
+        if recording():
+            _count_prep(out.perm.numel() if plan.sort and out.perm.shape[1] > CHUNK else 0, False)
+        return out
     table = None if transforms.table is None else transforms.table.to(torch.float32)
-    _check_prep_inputs(coords, weights, radii, mask, centers, table, plan)
-    b, v, _ = coords.shape
-    dev = coords.device
-    lib = _kernel_lib("deposit_prep")
-    args = prep_args(b, v, weights.shape[2], _radii_mode(radii, plan), transforms.rot, transforms.trans, plan,
-                     _prep_wide_clusters(lib, dev))
-    *shapes, dl = prep_shapes(args)
-    dtypes = (torch.float32, torch.float32, torch.int32, torch.int32)
-    rows, wt, ranges, perm = (torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in zip(shapes, dtypes))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.deposit_prep(
-            coords.data_ptr(), weights.data_ptr(), radii.data_ptr(), _ptr(mask), _ptr(centers), _ptr(table),
-            rows.data_ptr(), wt.data_ptr(), ranges.data_ptr(), perm.data_ptr(), *args, stream)
-    if rc != 0:
-        raise RuntimeError(f"deposit_prep kernel launch failed with cudaError {rc}")
-    launches["deposit_prep"] += 1
-    return _count_sort(Prepared(rows, wt, ranges, perm, dl), plan)
+    lp = _launch_plan(coords, weights, radii, mask, centers, table, transforms, plan, None)
+    return lp.outputs(lp.prepare(coords, weights, radii, mask, centers, table))
 
 
 # ------------------------------------------------------------ launch plans
-
-
-def _knobs() -> tuple:
-    """The module's launch constants, part of every launch plan's key: a
-    tool that sets one (a sweep) gets plans of the new value."""
-    return (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES, TARGET_BLOCKS, MIN_LANES, PREP_MAX_THREADS, PREP_SEARCH_SHARE,
-            PREP_ITEMS, PREP_SORT_THREADS, PREP_MAX_CLUSTER, PREP_MIN_SHARE, PREP_PAIR_THREADS, PREP_STAGE,
-            PREP_TARGET_BLOCKS, NOTRUNC_SIDE, NOTRUNC_WARP_CAP, NOTRUNC_BLOCK_WARPS, NOTRUNC_TARGET_BLOCKS)
 
 
 def _launch(index: int, fn, *args) -> int:
@@ -1088,22 +1076,22 @@ _ALIGN_WORDS = 128  # 4-byte words: each output of a planned preparation starts 
 
 
 class LaunchPlan:
-    """One batch shape's preparation and forward launch, for inputs that
-    need no gradient (``prepare_batch`` and ``voxelize_deposit_batch``; the
-    autograd Functions of ops/autodiff.py take the rest).
+    """One batch shape's preparation and forward launch.  Every preparation
+    on the card launches through its shape's plan (``_launch_plan``); where
+    an input needs a gradient, ops/autodiff.py's ``PrepareFunction`` wraps
+    the plan's preparation and ``DepositFunction`` the forward wrapper.
 
-    Built once a key (``_prepare``: devices, shapes, transform flags, the
-    ``PrepPlan``, output dtype and the launch constants): the kernels'
-    input checks run then, and the plan keeps the arguments of both
-    launches but the data pointers and the stream.  A preparation writes
-    its rows, weights, ranges and permutation into one allocation of
-    ``words`` 4-byte words (``prepare``), which the forward reads by
-    offsets (``forward``: it allocates only the grid) and ``outputs`` cuts
-    into tensors.  ``fwd`` is None for a plan of a preparation alone
-    (``prepare_batch``)."""
+    Built once a key (devices, shapes, transform flags, the ``PrepPlan``
+    and the output dtype): the kernels' input checks run then, and the plan
+    keeps the arguments of both launches but the data pointers and the
+    stream.  A preparation writes its rows, weights, ranges and permutation
+    into one allocation of ``words`` 4-byte words (``prepare``), which the
+    forward reads by offsets (``forward``: it allocates only the grid) and
+    ``outputs`` cuts into tensors.  ``fwd`` is None for a plan of a
+    preparation alone (``prepare_batch``, ``deposit_prep``)."""
 
     __slots__ = ("index", "prep", "rot", "trans", "args", "parts", "words", "offsets", "sort_slots", "fwd", "grid",
-                 "out_dtype", "grid_bytes")
+                 "out_dtype")
 
     def __init__(self, coords, weights, radii, mask, centers, table, rot: bool, trans: bool, prep: PrepPlan,
                  out_dtype: torch.dtype | None):
@@ -1122,12 +1110,11 @@ class LaunchPlan:
         self.offsets = tuple(4 * first for _, _, first in parts)
         vp, vo = shapes[3][1], shapes[0][2]
         self.sort_slots = b * vp if prep.sort and vp > CHUNK else 0
-        self.fwd, self.grid, self.out_dtype, self.grid_bytes = None, None, out_dtype, 0
+        self.fwd, self.grid, self.out_dtype = None, None, out_dtype
         if out_dtype is not None:
             dim = prep.spec.dimension
             self.fwd = fwd_launch(b, vo, c, dl, prep.spec, prep.gaussian, out_dtype, prep.notrunc)
             self.grid = (b, c, dl, dim, dim)
-            self.grid_bytes = math.prod(self.grid) * out_dtype.itemsize
 
     def prepare(self, coords, weights, radii, mask, centers, table) -> torch.Tensor:
         """The preparation launch on inputs of the plan's key -> its outputs'
@@ -1141,8 +1128,7 @@ class LaunchPlan:
             raise RuntimeError(f"deposit_prep kernel launch failed with cudaError {rc}")
         launches["deposit_prep"] += 1
         if recording():
-            count("molvoxel.plan_launches")
-            count("molvoxel.sort_slots", self.sort_slots)
+            _count_prep(self.sort_slots, True)
         return words
 
     def outputs(self, words: torch.Tensor) -> Prepared:
@@ -1154,17 +1140,9 @@ class LaunchPlan:
 
     def forward(self, words: torch.Tensor) -> torch.Tensor:
         """The forward launch on this plan's preparation ``words`` -> (B, C, Dl, H, W)."""
-        out = torch.empty(self.grid, dtype=self.out_dtype, device=words.device)
         base = words.data_ptr()
-        entry, args = self.fwd
-        rc = _launch(self.index, getattr(_kernel_lib("deposit_fwd"), entry),
-                     *(base + offset for offset in self.offsets[:3]), out.data_ptr(), *args, _raw_stream(self.index))
-        if rc != 0:
-            raise RuntimeError(f"deposit_fwd kernel launch failed with cudaError {rc}")
-        launches[entry] += 1
-        if recording():
-            count("molvoxel.grid_bytes", self.grid_bytes)
-        return out
+        return _launch_fwd(self.index, self.fwd, torch.empty(self.grid, dtype=self.out_dtype, device=words.device),
+                           *(base + offset for offset in self.offsets[:3]))
 
 
 def _raw_stream(index: int) -> int:
@@ -1173,7 +1151,27 @@ def _raw_stream(index: int) -> int:
 
 
 _PLANS: dict = {}
-_PLANS_MAX = 256  # plans kept at once: the cache starts over when full
+_PLANS_MAX = 256  # plans kept at once: the cache starts over when full (a tool that sets a launch constant clears it)
+
+
+def _launch_plan(coords, weights, radii, mask, centers, table, transforms: Transforms, plan: PrepPlan,
+                 out_dtype: torch.dtype | None) -> LaunchPlan:
+    """The batch shape's launch plan, built at its first call (counted as
+    ``molvoxel.plan_builds``); ``table`` is ``transforms``' table in float32."""
+    key = (coords.get_device(), coords.shape, weights.get_device(), weights.shape, radii.shape,
+           None if mask is None else (mask.get_device(), mask.shape, mask.dtype),
+           None if centers is None else centers.shape,
+           None if table is None else (table.get_device(), table.shape), transforms.rot, transforms.trans, plan,
+           out_dtype)
+    lp = _PLANS.get(key)
+    if lp is None:
+        lp = LaunchPlan(coords, weights, radii, mask, centers, table, transforms.rot, transforms.trans, plan,
+                        out_dtype)
+        if len(_PLANS) >= _PLANS_MAX:
+            _PLANS.clear()
+        _PLANS[key] = lp
+        count("molvoxel.plan_builds")
+    return lp
 
 
 def _f32(t: torch.Tensor, dev: torch.device | None = None) -> torch.Tensor:
@@ -1211,10 +1209,10 @@ def prepare_batch(coords, weights, radii, *, spec: GridSpec, density_type: str =
                   transforms=None, channelwise: bool = False):
     """Padded, sorted kernel inputs for a batch: (rows, weights, ranges, Dl,
     gaussian), exactly what voxelize_deposit_batch hands to the kernels,
-    from one preparation: on the card and with no input that needs a
-    gradient, launched by the shape's ``LaunchPlan``; else through
-    ``ops.autodiff.prepare`` (the kernel on CUDA tensors, ``prepare_plain``
-    on CPU ones).  ``centers`` (B, 3) are subtracted and ``transforms``
+    from one preparation: on the card launched by the shape's
+    ``LaunchPlan`` (inside ``ops.autodiff.PrepareFunction`` where an input
+    needs a gradient), on CPU tensors ``prepare_plain`` inside the
+    Function.  ``centers`` (B, 3) are subtracted and ``transforms``
     (``draw_transforms``' pair or a ``Transforms``) applied first; the
     Morton keys come from the centered coordinates, or with ``channelwise``
     radii (C,) from the transformed ones (each caller's order of sort and
@@ -1229,11 +1227,12 @@ def prepare_batch(coords, weights, radii, *, spec: GridSpec, density_type: str =
 
 def _prepare(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, presorted, centers,
              transforms, channelwise, out_dtype):
-    """A batch's preparation -> (None, ``prepare_batch``'s tuple) on the
-    autograd route, or (its launch plan, the plan's outputs in one
-    allocation), the plan holding the forward when ``out_dtype`` is
-    given."""
-    from .autodiff import prepare  # autodiff imports this module
+    """A batch's preparation -> (None, ``prepare_batch``'s tuple) through
+    ``ops.autodiff.PrepareFunction`` (CPU tensors, and inputs that need a
+    gradient), or (its launch plan, the plan's outputs in one allocation),
+    the plan holding the forward when ``out_dtype`` is given.  On the card
+    both launch through the batch shape's plan."""
+    from .autodiff import PrepareFunction  # autodiff imports this module
 
     with span("molvoxel.prepare"):
         gaussian = check_density(density_type)
@@ -1249,24 +1248,14 @@ def _prepare(coords, weights, radii, spec, density_type, sigma, mask, d_offset, 
         mask = None if mask is None else mask.contiguous()
         plan = PrepPlan(spec, gaussian, sigma, notrunc=density_type == "gaussian_notrunc", d_offset=d_offset,
                         d_count=d_count, sort=not presorted, channelwise=channelwise)
-        if dev.type == "cpu" or _needs_grad(coords, weights, radii, centers, transforms.table):
-            rows, wt, ranges, dl = prepare(coords, weights, radii, mask, centers, transforms, plan)
-            return None, (rows, wt, ranges, dl, gaussian)
-        table = None if transforms.table is None else _f32(transforms.table)
-        key = (coords.get_device(), coords.shape, weights.get_device(), weights.shape, radii.shape,
-               None if mask is None else (mask.get_device(), mask.shape, mask.dtype),
-               None if centers is None else centers.shape,
-               None if table is None else (table.get_device(), table.shape), transforms.rot, transforms.trans, plan,
-               out_dtype, _knobs())
-        lp = _PLANS.get(key)
-        if lp is None:
-            lp = LaunchPlan(coords, weights, radii, mask, centers, table, transforms.rot, transforms.trans, plan,
-                            out_dtype)
-            if len(_PLANS) >= _PLANS_MAX:
-                _PLANS.clear()
-            _PLANS[key] = lp
-            count("molvoxel.plan_builds")
-        return lp, lp.prepare(coords, weights, radii, mask, centers, table)
+        table, lp = transforms.table, None
+        if dev.type != "cpu":
+            table = None if table is None else _f32(table)
+            lp = _launch_plan(coords, weights, radii, mask, centers, table, transforms, plan, out_dtype)
+            if not _needs_grad(coords, weights, radii, centers, table):
+                return lp, lp.prepare(coords, weights, radii, mask, centers, table)
+        rows, wt, ranges, _ = PrepareFunction.apply(coords, weights, radii, centers, table, mask, transforms, plan, lp)
+        return None, (rows, wt, ranges, spec.dimension if d_count is None else d_count, gaussian)
 
 
 def _deposit_batch(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, out_dtype, presorted,
@@ -1302,9 +1291,9 @@ def voxelize_deposit_batch(coords, weights, radii, *, spec: GridSpec, density_ty
     arrive in Morton order, so no sort.  Differentiable in coords, weights,
     radii, centers and the transforms' quaternions and translations: the
     preparation and forward kernels run forward, the backward kernel and
-    the preparation's explicit VJP backward.  Where no input needs a
-    gradient, the shape's ``LaunchPlan`` launches both kernels, with no
-    autograd Function.
+    the preparation's explicit VJP backward.  On the card the preparation
+    launches through the shape's ``LaunchPlan``; where no input needs a
+    gradient, so does the forward, with no autograd Function.
     Counterpart of voxelize_pallas_batch and its custom VJP
     (voxelize_pallas_bwd_batch)."""
     return _deposit_batch(coords, weights, radii, spec, density_type, sigma, mask, d_offset, d_count, out_dtype,

@@ -458,13 +458,10 @@ def test_bwd_warps_per_atom_is_what_the_wrapper_passes(rng, monkeypatch):
             calls.append(args)
             return 0
 
-    import contextlib
-    import types
-
     monkeypatch.setattr(deposit, "_kernel_lib", lambda name: FakeLib())
     monkeypatch.setattr(deposit, "_check_kernel_inputs", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(deposit, "_raw_stream", lambda index: 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)  # meta tensors' device: no context entered
     spec = TSpec(0.5, 8)
     before = deposit.launches["deposit_bwd"]
     for b, vp, c in ((1, 64, 4), (9, 128, 1), (70_000, 64, 1)):

@@ -3,8 +3,9 @@ the transform table ``forward_batch`` stages with its batch
 (core/transform.py ``draw_transform_table``), on the CPU.
 
 A plan's launches run against a stand-in library on meta tensors (no card
-here): built once a shape and reused, with the arguments the autograd
-route's wrappers pass, and taken only where no input needs a gradient.
+here): built once a shape and reused, with the arguments the wrappers
+pass, the preparation launched through it on both routes and the forward
+where no input needs a gradient.
 The table holds the draws of ``draw_transforms`` and the matrices of
 ``quaternion_to_matrix``; ``forward_batch`` with it gives the grids of
 ``voxelize_batch`` drawing the same transforms itself.
@@ -163,7 +164,6 @@ def card(monkeypatch):
     monkeypatch.setattr(deposit, "_check_kernel_inputs", lambda *a: None)
     monkeypatch.setattr(deposit, "_raw_stream", lambda index: 0)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type("S", (), {"cuda_stream": 0})())
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     return lib
 
@@ -220,8 +220,9 @@ def test_plans_count_nothing_untraced(card):
     (1, 4096, 1, False, "gaussian_notrunc", "float32"),
 ])
 def test_plan_launches_take_the_wrappers_arguments(card, b, v, c, channelwise, density, out_dtype):
-    """Both launches of a plan pass what ``deposit_prep`` and
-    ``deposit_fwd`` pass for the same inputs, each launch counted once."""
+    """Both launches of a plan pass what ``deposit_prep`` (through a plan
+    of the preparation alone) and ``deposit_fwd`` (its launch worked out
+    a call) pass for the same inputs, each launch counted once."""
     coords, weights, _, mask = _meta_batch(b, v, c)
     radii = torch.empty((c,) if channelwise else (v,), device="meta")
     centers = torch.empty((b, 3), device="meta")
@@ -260,25 +261,41 @@ def test_prepare_batch_cuts_one_allocation_four_ways(card):
 
 
 def test_a_launch_constant_set_by_a_tool_makes_a_new_plan(card, monkeypatch):
+    """A plan keeps the launch it was built with; a tool that sets a
+    constant clears the plans, and the next call builds one of the new
+    value."""
     _run(16, 3323, 1)
     monkeypatch.setattr(deposit, "TARGET_BLOCKS", deposit.TARGET_BLOCKS * 4)
     _run(16, 3323, 1)
-    assert len(deposit._PLANS) == 2
-    (_, first), (_, second) = (call for call in card.calls if call[0] == "deposit_fwd")
-    assert first != second  # the bricks follow the constant
+    assert len(deposit._PLANS) == 1
+    deposit._PLANS.clear()
+    _run(16, 3323, 1)
+    assert len(deposit._PLANS) == 1
+    first, kept, second = (args for name, args in card.calls if name == "deposit_fwd")
+    assert kept[4:] == first[4:] and second[4:] != first[4:]  # the bricks follow the constant
 
 
 def test_inputs_that_need_a_gradient_take_the_autograd_functions(card, monkeypatch):
+    """Inputs that need a gradient run both Functions around the shape's
+    plan: its preparation launch, and the forward wrapper's launch with the
+    plan's arguments.  Without a gradient the same plan launches both,
+    with no Function."""
     applied = []
     for fn in (autodiff.PrepareFunction, autodiff.DepositFunction):
         real = fn.apply
         monkeypatch.setattr(fn, "apply", lambda *a, real=real, name=fn.__name__: applied.append(name) or real(*a))
     coords, weights, radii, mask = _meta_batch(2, 61, 4, requires_grad=True)
-    deposit.voxelize_deposit_batch(coords, weights, radii, spec=SPEC, mask=mask, transforms=_table(2))
-    assert applied == ["PrepareFunction", "DepositFunction"] and not deposit._PLANS
-    with torch.no_grad():  # nothing can flow back: the plan
+    with cpu_profile():
         deposit.voxelize_deposit_batch(coords, weights, radii, spec=SPEC, mask=mask, transforms=_table(2))
     assert applied == ["PrepareFunction", "DepositFunction"] and len(deposit._PLANS) == 1
+    counters = timing.snapshot()["counters"]
+    assert counters["molvoxel.plan_builds"] == 1 and counters["molvoxel.plan_launches"] == 1
+    with torch.no_grad():  # nothing can flow back: the plan alone
+        deposit.voxelize_deposit_batch(coords, weights, radii, spec=SPEC, mask=mask, transforms=_table(2))
+    assert applied == ["PrepareFunction", "DepositFunction"] and len(deposit._PLANS) == 1
+    (prep, grad_prep), (entry, grad_fwd), (_, plan_prep), (_, plan_fwd) = card.calls
+    assert prep == "deposit_prep" and entry == "deposit_fwd" and len(card.calls) == 4
+    assert grad_prep[10:] == plan_prep[10:] and grad_fwd[4:] == plan_fwd[4:]
 
 
 # ------------------------------------------------- the autograd route (CPU)

@@ -8,7 +8,6 @@ and its launch plan (``prep_launch``)."""
 
 import contextlib
 import re
-import types
 
 import jax
 import jax.numpy as jnp
@@ -480,9 +479,10 @@ def test_kernel_sort_model_on_morton_keys_of_a_molecule(rng):
 # ------------------------------------------------------- the CUDA wrapper
 
 def test_prep_wrapper_launches_once_below_the_line_and_twice_above(monkeypatch):
-    """With a stand-in library: the arguments the wrapper passes (shapes,
-    ht, the launch of ``prep_launch`` at the card's cluster cap, radii mode,
-    sort) and one launch counted at every size, up to the 65,536-atom cap:
+    """With a stand-in library: the arguments the wrapper passes through
+    the shape's launch plan (shapes, ht, the launch of ``prep_launch`` at
+    the card's cluster cap, radii mode, sort) and one launch counted at
+    every size, up to the 65,536-atom cap:
     the shared-memory line of 16,384 atoms, and the keys launch and
     torch.argsort above it, are gone."""
     calls = []
@@ -498,8 +498,10 @@ def test_prep_wrapper_launches_once_below_the_line_and_twice_above(monkeypatch):
 
     monkeypatch.setattr(deposit, "_kernel_lib", lambda name: FakeLib())
     monkeypatch.setattr(deposit, "_WIDE_CLUSTERS", {})
+    monkeypatch.setattr(deposit, "_PLANS", {})
     monkeypatch.setattr(deposit, "_check_prep_inputs", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(deposit, "_raw_stream", lambda index: 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)  # meta tensors' device: no context entered
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     spec = TSpec(0.5, 48)
     for b, v, c, channelwise in ((64, 61, 4, False), (1, 4096, 1, False), (2, 61, 4, True), (1, 20000, 1, False),

@@ -1,8 +1,10 @@
 """forward_batch's one-pass staging and the pinned ring (molvoxel_torch/data/staging.py), on the CPU.
 
 The batch ``forward_batch`` hands to ``voxelize_batch`` must be, bit for bit,
-what ``pad_point_clouds`` and ``types_to_onehot`` make, whichever placement
-writes it (per-molecule slices, or one gather); the ring reuses a slot only
+what the JAX package's ``pad_point_clouds`` and ``types_to_onehot`` make,
+whichever placement writes it (per-molecule slices, or one gather), and so
+must the port's ``pad_point_clouds`` and ``iter_batches``, which write
+through the same ``stage_batch``; the ring reuses a slot only
 after the event behind its last copy has completed, and counts its
 allocations and waits while a profiler records.
 """
@@ -17,9 +19,10 @@ from torch.profiler import ProfilerActivity, profile
 
 import molvoxel_torch
 import molvoxel_torch.ops.batch as batch_ops
-from molvoxel_torch.data import staging
-from molvoxel_torch.data.pipeline import pad_point_clouds, types_to_onehot
+from molvoxel_torch.data import pipeline, staging
 from molvoxel_torch.utils import timing
+from molvoxel_tpu.data import pipeline as jax_pipeline
+from molvoxel_tpu.data.pipeline import pad_point_clouds, types_to_onehot
 
 C = 3
 SIZES = {
@@ -123,6 +126,49 @@ def test_staged_batch_is_the_padded_batch_bit_for_bit(monkeypatch, placement, si
         assert np.array_equal(g.numpy().view(np.uint8), np.ascontiguousarray(w).view(np.uint8)), name
     assert kw["radii_batched"] == (radii_kind == "per_molecule")
     assert kw["channelwise"] == (radii_kind == "channel_wise")
+
+
+def _same_batch(got, want):
+    """Two ``PaddedBatch``es field by field, bit for bit."""
+    for field in ("coords", "weights", "mask", "radii", "centers", "num_atoms", "types", "num_channels"):
+        g, w = getattr(got, field), getattr(want, field)
+        if not isinstance(w, np.ndarray):
+            assert g == w, field
+            continue
+        assert isinstance(g, np.ndarray) and g.dtype == w.dtype and g.shape == w.shape, field
+        assert np.array_equal(np.ascontiguousarray(g).view(np.uint8), w.view(np.uint8)), field
+
+
+# (route, per-molecule radii, centers): iter_batches takes neither radii nor centers
+PAD_CASES = [("pad", radii, centers) for radii in ("none", "scalar", "array") for centers in (False, True)]
+PAD_CASES.append(("iter_batches", "none", False))
+
+
+@pytest.mark.parametrize("route,radii_kind,with_centers", PAD_CASES, ids=["-".join(map(str, c)) for c in PAD_CASES])
+@pytest.mark.parametrize("bucket", [None, 640], ids=["bucket_inferred", "bucket_given"])
+@pytest.mark.parametrize("sizes", list(SIZES), ids=list(SIZES))
+def test_pad_point_clouds_and_iter_batches_equal_the_jax_package(placement, sizes, bucket, route, radii_kind,
+                                                                 with_centers):
+    """``pad_point_clouds`` (through ``stage_batch``) against the JAX
+    package's: per-molecule radii as scalars or (V_i,) arrays, a given
+    bucket, centers; and ``iter_batches`` over the same molecules in
+    batches of 2, its short tail filled with empty molecules or dropped."""
+    sizes = SIZES[sizes]
+    clouds = _clouds(sizes, "features", False)
+    if route == "iter_batches":
+        for drop in (False, True):
+            got = list(pipeline.iter_batches(iter(clouds), 2, bucket=bucket, drop_remainder=drop))
+            want = list(jax_pipeline.iter_batches(iter(clouds), 2, bucket=bucket, drop_remainder=drop))
+            assert len(got) == len(want) == (len(sizes) // 2 if drop else -(-len(sizes) // 2))
+            for g, w in zip(got, want):
+                _same_batch(g, w)
+        return
+    rng = np.random.default_rng(3)
+    radii = {"none": None, "scalar": [float(r) for r in rng.uniform(0.5, 1.5, len(sizes))],
+             "array": [rng.uniform(0.5, 1.5, v).astype(np.float32) for v in sizes]}[radii_kind]
+    centers = [rng.normal(size=3) for _ in sizes] if with_centers else None
+    kw = dict(radii=radii, centers=centers, bucket=bucket)
+    _same_batch(pipeline.pad_point_clouds(clouds, **kw), jax_pipeline.pad_point_clouds(clouds, **kw))
 
 
 def test_both_placements_meet_in_the_benchmarks_shapes():

@@ -180,6 +180,7 @@ def main() -> int:
         lines.append(line)
         for target in (int(t) for t in args.targets.split(",") if t):
             deposit.TARGET_BLOCKS = target
+            deposit._PLANS.clear()  # the plans of the old constant
             try:
                 rows_t, wt_t, ranges_t, dl_t, _ = deposit.prepare_batch(coords, w, radii, spec=spec, mask=mask,
                                                                         density_type=density)
@@ -191,6 +192,7 @@ def main() -> int:
                       "brick": deposit.fwd_launch_info(b, c, vp, dl, spec.dimension, gaussian, odt)})
             finally:
                 deposit.TARGET_BLOCKS = default_target
+                deposit._PLANS.clear()
     return 0 if all(ln["ok"] for ln in lines) else 1
 
 

@@ -163,6 +163,7 @@ def use(lib, acc_max):
     from molvoxel_torch.ops import _build, deposit
 
     deposit.ACC_MAX = acc_max
+    deposit._PLANS.clear()  # the plans of the old constant
     _build._loaded["deposit_fwd"] = lib
 
 
@@ -310,6 +311,7 @@ def variants(dev):
                                                                          gaussian=gaussian, out_dtype=odt)))
         emit({"phase": "variants", "case": label, **{name: statistics.median(t) for name, t in times.items()}})
     deposit.ACC_MAX = default_acc
+    deposit._PLANS.clear()
 
 
 def main() -> int:

@@ -164,6 +164,7 @@ def forward_cases(dev, fwd_lib, bwd_lib, sweep):
                         continue
                     for k, v in plan.items():
                         setattr(deposit, k, v)
+                    deposit._PLANS.clear()  # the plans of the old constants
                     # the ranges at this plan's rows
                     r_rows, r_wt, r_ranges, r_dl, _ = deposit.prepare_batch(coords, w, radii, **kw)
                     times.setdefault(key, []).append(time_graph_ms(
@@ -171,6 +172,7 @@ def forward_cases(dev, fwd_lib, bwd_lib, sweep):
                                                     out_dtype=odt, notrunc=True)))
                     for k, v in base.items():
                         setattr(deposit, k, v)
+                    deposit._PLANS.clear()
             emit({"phase": "sweep_fwd", "case": name,
                   "ms": {k: statistics.median(v) for k, v in times.items()}})
             continue

@@ -192,6 +192,7 @@ def main() -> int:
         for knob, value in sweeps:
             default = getattr(deposit, knob)
             setattr(deposit, knob, value)
+            deposit._PLANS.clear()  # the plans of the old constant
             try:
                 got = deposit.deposit_prep(*inputs, plan)
                 same = all(same_bits(getattr(got, f), getattr(new, f)) for f in fields)
@@ -201,6 +202,7 @@ def main() -> int:
                                                     deposit._WIDE_CLUSTERS[inputs[0].device])._asdict()})
             finally:
                 setattr(deposit, knob, default)
+                deposit._PLANS.clear()
         del new, old
     return 0 if all(ln["ok"] for ln in lines) else 1
 

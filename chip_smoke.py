@@ -29,10 +29,12 @@ exit code:
    20, 33, 40, 50), a 256^3 grid, the 61-atom ligand and the 3262-atom
    protein of tests/goldens, depth slabs (one at planes 5..31, not a whole
    number of bricks), channel-wise radii, C = 1, 6, 9 and 12 (more than one
-   channel group), a batch of 512 ligands at 32^3 and the notrunc
+   channel group), a batch of 512 ligands at 32^3, the notrunc
    threshold rows (the ligand at 48^3 on the brick kernel; the protein at
    128^3 in f32, bf16 and fp8, and a 64-plane depth slab of it at 256^3, on
-   the threshold-row kernel); every case is launched twice and the two grids must be
+   the tile kernel) and the benchmark cells' tile launches (16 proteins at
+   128^3 in f32, bf16 and fp8, on wide lanes; 16 10gs complexes at 48^3 on
+   the ligand's mean); every case is launched twice and the two grids must be
    bitwise equal.  An all-masked batch at the headline shape must give an
    exact zero grid; it is timed as it is and with its atoms parked off the
    grid (the kernel's store floor).  Then bwd_vs_plain: the backward kernel against
@@ -56,10 +58,13 @@ exit code:
    to 0 just before and read just after each path:
    - row 1 (whole-row grids): ``forward_batch`` on 64 ligands of 61 atoms,
      each with its own random rotation and 0.5 A translation, into a 64^3 x 4
-     gaussian grid in bfloat16; the 3262-atom protein at 48^3 and 128^3, f32
-     (and gaussian_notrunc at 128^3 against the dense path at 1e-5, on the
-     route ``notrunc_separable`` names: one launch on the kernel, none on
-     the separable product);
+     gaussian grid in bfloat16 (the brick kernel); the 3262-atom protein at
+     48^3 and 128^3, f32 (the tile kernel; and gaussian_notrunc at 128^3
+     against the dense path at 1e-5, on the route ``notrunc_separable``
+     names: one launch on the kernel, none on the separable product); the
+     protein cell's call, ``forward_batch`` of 16 proteins at 128^3, f32 (the
+     tile kernel on wide lanes; one tile launch), against ``prepare_plain``
+     and ``deposit_plain`` from the same staged batch and transform table;
    - row 2 (gaussian, ragged or 256^3): the ligand at dims 20 and 40 and at 256^3;
    - row 3 (binary, ragged or 256^3): the ligand at dim 40 and at 256^3;
    - row 4 (backward): the training step, the headline batch through
@@ -195,10 +200,14 @@ exit code:
    seeded apart, assembled against one full-depth call at 1e-5.
 14. kernels: one line {"kernels": [...]} with each kernel's launches (the
    main paths' and, by phase, notrunc_routing's, convergence's, examples'
-   and phases 10-13's; deposit_prep's every reading of the counts from
-   the goldens on, by phase, and the run fails if the main paths launched
-   it no time), error,
-   times and bound; rows 1 and 2 carry a "notrunc" entry: a timed
+   and phases 10-13's, of either forward kernel outside the main paths;
+   deposit_prep's and the tile kernel's every reading of the counts in this
+   process from the goldens on, by phase, and the run fails if the main
+   paths launched deposit_prep no time), error,
+   times and bound; the tile kernel's entry is timed on the protein cell's
+   call and lists its other main-path lines; row 1 is timed on the headline
+   batch and its main-path launches are the brick's; rows 1 and 2 carry a
+   "notrunc" entry: a timed
    notrunc_routing case of the brick kernel on threshold rows (a ligand
    batch) with the kernel launch's ms, its plain version's ms and its bound,
    the kernel route's ms, and the separable product's ms as its library_ms.  Two more entries are the threshold-row kernels: the
@@ -240,8 +249,10 @@ DEVICE = "cuda"
 # deposit_prep's launches as the readings of the counts saw them, by the
 # phase that was running (PREP_READ["phase"]): every ``launch_counts`` adds
 # the launches counted since the reading before it (or since
-# ``reset_launches``).  The kernels line reports these.
-PREP_READ = {"phase": "kernel_vs_plain", "since_reset": 0, "by_phase": {}}
+# ``reset_launches``); and the tile forward kernel's the same way
+# ("tile_..."), at either reach.  The kernels line reports these.
+PREP_READ = {"phase": "kernel_vs_plain", "since_reset": 0, "by_phase": {}, "tile_since_reset": 0,
+             "tile_by_phase": {}}
 
 
 def reset_launches():
@@ -249,7 +260,7 @@ def reset_launches():
     from molvoxel_torch.ops import deposit
 
     deposit.reset_launches()
-    PREP_READ["since_reset"] = 0
+    PREP_READ["since_reset"] = PREP_READ["tile_since_reset"] = 0
 
 
 def add_prep_launches(n: int):
@@ -262,11 +273,11 @@ def launch_counts() -> dict:
     """The kernels' launches since the last ``reset_launches``; fails the
     run unless deposit_prep launched exactly as often as deposit_fwd: every
     forward launch took its inputs from the preparation kernel.  Adds the
-    deposit_prep launches it reads to ``PREP_READ``."""
+    deposit_prep and tile launches it reads to ``PREP_READ``."""
     from molvoxel_torch.ops import deposit
 
     n = dict(deposit.launches)
-    fwd = n["deposit_fwd"] + n["deposit_fwd_notrunc"]
+    fwd = fwd_total(n)
     if n["deposit_prep"] != fwd:
         raise SystemExit(f"deposit_fwd launched {fwd} times after {n['deposit_prep']} deposit_prep "
                          "launches: a forward launch took inputs that the preparation kernel did not make")
@@ -274,15 +285,24 @@ def launch_counts() -> dict:
         raise SystemExit("the launch counts were set to 0 past chip_smoke.reset_launches")
     add_prep_launches(n["deposit_prep"] - PREP_READ["since_reset"])
     PREP_READ["since_reset"] = n["deposit_prep"]
+    tiles = PREP_READ["tile_by_phase"]
+    tiles[PREP_READ["phase"]] = tiles.get(PREP_READ["phase"], 0) + n["deposit_fwd_tile"] - PREP_READ["tile_since_reset"]
+    PREP_READ["tile_since_reset"] = n["deposit_fwd_tile"]
     return n
+
+
+def fwd_total(n: dict) -> int:
+    """The forward launches of a launch count ``n``: either kernel of
+    deposit_fwd.cu (the brick for molecules of one chunk, the tiles for
+    larger ones)."""
+    return n["deposit_fwd"] + n["deposit_fwd_tile"]
 
 
 def fwd_launches() -> int:
     """The forward wrapper's launches (either kernel of deposit_fwd.cu)
     since the last ``reset_launches``, checked as ``launch_counts`` checks
     them."""
-    n = launch_counts()
-    return n["deposit_fwd"] + n["deposit_fwd_notrunc"]
+    return fwd_total(launch_counts())
 
 
 def emit(obj):
@@ -1033,6 +1053,24 @@ def launch_plan_cells(calls: int) -> dict:
     return cells
 
 
+def staged_batch(kw: dict, dev) -> list:
+    """The batch ``forward_batch`` stages for the keywords ``kw`` (one of
+    ``launch_plan_cells``' calls), on ``dev``: [coords, weights, radii, mask,
+    centers]."""
+    import numpy as np
+
+    from molvoxel_torch.core.config import small_atom_bucket
+    from molvoxel_torch.data import staging
+
+    crds, types = [c for c, _ in kw["clouds"]], [t for _, t in kw["clouds"]]
+    counts = np.array([len(c) for c in crds], np.int64)
+    vp = small_atom_bucket(int(counts.max()))
+    layout = staging.batch_layout(len(crds), vp, kw["num_channels"], (vp,), True)
+    buf = staging.unpinned(layout)
+    staging.stage_batch(buf.arrays, crds, types, counts, True, 1.0, np.stack(kw["centers"]).astype(np.float32))
+    return [t.to(dev) for t in layout.tensors(buf.host)]
+
+
 def phase_launch_plan(dev) -> list:
     """launch_plan: ``forward_batch``'s kernel route through its launch
     plans (``deposit.LaunchPlan``: no autograd Function) against the
@@ -1051,15 +1089,12 @@ def phase_launch_plan(dev) -> list:
       no plan built, one plan launch a call, no staging allocation, and in
       the host-bound complex and ligand cells no wait for a slot (the
       protein's waits, where its kernels outlast the host, are reported)."""
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from molvoxel_torch import create_voxelizer
     from molvoxel_torch.api.voxelizer import _generator
-    from molvoxel_torch.core.config import small_atom_bucket
     from molvoxel_torch.core.transform import draw_transform_table
-    from molvoxel_torch.data import staging
     from molvoxel_torch.ops import deposit
     from molvoxel_torch.ops.batch import draw_transforms, voxelize_batch
     from molvoxel_torch.utils import timing
@@ -1072,15 +1107,6 @@ def phase_launch_plan(dev) -> list:
                 out = fn()
             torch.cuda.synchronize()
         return out, timing.snapshot()["counters"]
-
-    def staged(kw):  # the batch forward_batch stages for these keywords, on the card
-        crds, types = [c for c, _ in kw["clouds"]], [t for _, t in kw["clouds"]]
-        counts = np.array([len(c) for c in crds], np.int64)
-        vp = small_atom_bucket(int(counts.max()))
-        layout = staging.batch_layout(len(crds), vp, kw["num_channels"], (vp,), True)
-        buf = staging.unpinned(layout)
-        staging.stage_batch(buf.arrays, crds, types, counts, True, 1.0, np.stack(kw["centers"]).astype(np.float32))
-        return [t.to(dev) for t in layout.tensors(buf.host)]
 
     lines, failed = [], []
     for cell, (vox_kw, calls) in launch_plan_cells(PLAN_CALLS).items():
@@ -1098,7 +1124,7 @@ def phase_launch_plan(dev) -> list:
                 return voxelize_batch(coords.clone().requires_grad_(True), w, radii, mask, centers, **kw).detach()
 
         first = calls[0]
-        tensors = staged(first)
+        tensors = staged_batch(first, dev)
         table = deposit.Transforms(torch.as_tensor(draw_transform_table(_generator(first["key"]), b, 0.5, True),
                                                    device=dev), True, True)
         plan_grid, plan_counts = counted(lambda: route(tensors, table, False, first["out_dtype"]))
@@ -1109,7 +1135,7 @@ def phase_launch_plan(dev) -> list:
         diffs, bitwise = [], []
         for kw in calls[:8]:
             got = vox.forward_batch(**kw)
-            want = route(staged(kw), draw_transforms(_generator(kw["key"]), b, 0.5, True), True, kw["out_dtype"])
+            want = route(staged_batch(kw, dev), draw_transforms(_generator(kw["key"]), b, 0.5, True), True, kw["out_dtype"])
             diffs.append(float((got.float() - want.float()).abs().max()))
             bitwise.append(same_bits(got, want))
             del got, want
@@ -1420,7 +1446,7 @@ def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, 
     got = routes["kernel"]()
     torch.cuda.synchronize()
     counts = launch_counts()
-    launches = counts["deposit_fwd"] + counts["deposit_fwd_notrunc"]
+    launches = fwd_total(counts)
     ref = routes["separable"]().float()
     err = float((got.float() - ref).abs().max())
     tol = 2e-5 if odt == torch.float32 else 2**-7 * max(float(ref.abs().max()), 1.0)
@@ -1455,7 +1481,7 @@ def notrunc_case(name, mol, b: int, dim: int, res: float, slab, out_dtype: str, 
             "kernel_bound_ms": b_ms, "kernel_bound_by": b_by, "threshold_pairs": pairs,
             "separable_flops": bmm + other_ops, "separable_bytes": n_bytes, "separable_bound_ms": sep_bound,
             "faster": min(ms, key=ms.get), "port_route": port, "port_over_other": ms[port] / ms[other],
-            "launches": launches, "kernel_launches": {k: counts[k] for k in ("deposit_fwd", "deposit_fwd_notrunc")},
+            "launches": launches, "kernel_launches": {k: counts[k] for k in ("deposit_fwd", "deposit_fwd_tile")},
             "max_abs_diff": err, "tol": tol, "launch": plan}
     line["ok"] = bool(finite and err <= tol and launches == 1 and ms[port] <= 1.1 * ms[other])
     torch.cuda.empty_cache()
@@ -1533,7 +1559,7 @@ def notrunc_train_case(name, mol, b: int, dim: int, entry: str, dev) -> dict:
     got = step(entry_fn)
     torch.cuda.synchronize()
     launches = launch_counts()
-    n_fwd = launches["deposit_fwd"] + launches["deposit_fwd_notrunc"]
+    n_fwd = fwd_total(launches)
     n_bwd = launches["deposit_bwd"] + launches["deposit_bwd_notrunc"]
     taken = "kernel" if n_fwd == 1 and n_bwd == 1 else ("separable" if not any(launches.values()) else "other")
     entry_err = grad_err(got, grads[port])[0]
@@ -1568,14 +1594,14 @@ def phase_notrunc_routing(dev) -> dict:
     # (table rows 1 and 2) and the threshold-row kernels
     launches = {row: sum(ln["kernel_launches"]["deposit_fwd"] for ln in lines.values() if ln["row"] == row)
                 for row in (1, 2)}
-    launches["fwd_notrunc"] = sum(ln["kernel_launches"]["deposit_fwd_notrunc"] for ln in lines.values())
+    launches["fwd_notrunc"] = sum(ln["kernel_launches"]["deposit_fwd_tile"] for ln in lines.values())
     launches["bwd_notrunc"] = 0
     for name, mol, b, dim, entry in NOTRUNC_TRAIN_CASES:
         lines[name] = notrunc_train_case(name, mols[mol], b, dim, entry, dev)
         emit(lines[name])
         n = lines[name]["entry_launches"]
         launches[1] += n["deposit_fwd"]
-        launches["fwd_notrunc"] += n["deposit_fwd_notrunc"]
+        launches["fwd_notrunc"] += n["deposit_fwd_tile"]
         launches["bwd_notrunc"] += n["deposit_bwd_notrunc"]
     reset_launches()
     emit({"phase": "notrunc_routing_seconds", "total_s": time.perf_counter() - t_start})
@@ -1601,7 +1627,7 @@ def phase_notrunc_routing(dev) -> dict:
 
 def notrunc_entries(launches: dict, lines: dict, errs: dict) -> list:
     """The kernels-line entries of the threshold-row kernels: the forward
-    (deposit_fwd_notrunc_kernel, gaussian_notrunc's launches of table rows
+    (deposit_fwd_tile_kernel, gaussian_notrunc's launches of table rows
     1 and 2 on molecules of more than one chunk) timed on the protein at
     128^3, and the backward (deposit_bwd_notrunc_kernel, table row 4's)
     timed on the training batch; launches are notrunc_routing's, and each
@@ -1613,13 +1639,13 @@ def notrunc_entries(launches: dict, lines: dict, errs: dict) -> list:
                  "route_ms": lines[n][route_key], "library_ms": lines[n][lib_key]} for n in names]
 
     fwd = timed("", "kernel_route_ms", "separable_ms",
-                [c[0] for c in NOTRUNC_CASES if lines[c[0]]["kernel_launches"]["deposit_fwd_notrunc"]])
+                [c[0] for c in NOTRUNC_CASES if lines[c[0]]["kernel_launches"]["deposit_fwd_tile"]])
     bwd = timed("bwd_", "kernel_fwd_bwd_ms", "separable_fwd_bwd_ms",
                 [c[0] for c in NOTRUNC_TRAIN_CASES if lines[c[0]]["kernel_bwd_launch"]["entry"] == "deposit_bwd_notrunc"])
     head_f = next(t for t in fwd if t["case"] == "prot3262_b1_dim128_c1_f32")
     head_b = next(t for t in bwd if t["case"] == "train_layer_lig61_b64_dim64_c4_f32")
     return [
-        {"name": "deposit_fwd_notrunc_kernel (threshold rows of table rows 1 and 2: gaussian_notrunc, more than one "
+        {"name": "deposit_fwd_tile_kernel (threshold rows of table rows 1 and 2: gaussian_notrunc, more than one "
                  "chunk)", "route": "cuda", "source": "molvoxel_torch/csrc/deposit_fwd.cu",
          "replaces": f"{REPLACES[1]} and {REPLACES[2]}, on threshold rows (pallas_deposit.py:65-86)",
          "launches": launches["fwd_notrunc"], "max_abs_err": max(errs["fwd"]),
@@ -1894,9 +1920,9 @@ def phase_examples(lib4096: Path, tmp: Path) -> dict:
     t_start = time.perf_counter()
     launches = {1: 0, 2: 0}
     (first, last, step_ms), seconds, n = run(lambda: torch_train_cnn.main(steps=60, device=DEVICE))
-    launches[1] += n["deposit_fwd"]
-    ok = last < 0.8 * first and n == {"deposit_prep": 60, "deposit_fwd": 60, "deposit_bwd": 0,
-                                      "deposit_fwd_notrunc": 0, "deposit_bwd_notrunc": 0}
+    launches[1] += fwd_total(n)
+    ok = last < 0.8 * first and n["deposit_prep"] == fwd_total(n) == 60 and n["deposit_bwd"] == 0 and \
+        n["deposit_bwd_notrunc"] == 0
     emit({"phase": "examples", "case": "train_cnn_60_steps_batch16_dim16_c2", "mse_first10": first,
           "mse_last10": last, "bar": "last < 0.8 x first", "step_ms_median_after_2": step_ms, "launches": n,
           "seconds": seconds, "ok": bool(ok)})
@@ -1904,29 +1930,29 @@ def phase_examples(lib4096: Path, tmp: Path) -> dict:
         raise SystemExit("examples: torch_train_cnn launched other than one forward a step")
 
     (scores, names), seconds, n = run(lambda: torch_screen_library.main(device=DEVICE))
-    launches[2] += n["deposit_fwd"]
+    launches[2] += fwd_total(n)
     ref, ref_names = torch_screen_library.main(device="cpu")
     err = float(np.abs(scores - ref).max())
     order = np.argsort(scores)[::-1]
-    ok = err <= 1e-5 and names == ref_names and n["deposit_fwd"] == 1 + -(-len(names) // torch_screen_library.BATCH)
+    ok = err <= 1e-5 and names == ref_names and fwd_total(n) == 1 + -(-len(names) // torch_screen_library.BATCH)
     emit({"phase": "examples", "case": "screen_library_35_mols_dim24_batch8", "molecules": len(scores),
           "top5": [names[i] for i in order[:5]], "max_abs_err_vs_dense": err, "tol": 1e-5, "launches": n,
           "seconds": seconds, "ok": bool(ok)})
     if not ok:
         raise SystemExit("examples: torch_screen_library disagrees with the dense path")
     (scores, names), seconds, n = run(lambda: torch_screen_library.main(library=lib4096, device=DEVICE))
-    launches[2] += n["deposit_fwd"]
-    ok = len(scores) == 4096 - 2 and n["deposit_fwd"] == 1 + 4096 // torch_screen_library.BATCH
+    launches[2] += fwd_total(n)
+    ok = len(scores) == 4096 - 2 and fwd_total(n) == 1 + 4096 // torch_screen_library.BATCH
     emit({"phase": "examples", "case": "screen_library_first_4096_records_dim24_batch8", "molecules": len(scores),
           "mols_per_s": len(scores) / seconds, "launches": n, "seconds": seconds, "ok": bool(ok)})
     if not ok:
         raise SystemExit("examples: torch_screen_library did not screen the library's records with atoms")
 
     (image, aug, result), seconds, n = run(lambda: torch_voxelize_complex.main(out=tmp / "complex", device=DEVICE))
-    launches[1] += n["deposit_fwd"]
+    launches[1] += fwd_total(n)
     ref_image, ref_aug, _ = torch_voxelize_complex.main(out=tmp / "complex_cpu", device="cpu")
     errs = [float((got.cpu() - want).abs().max()) for got, want in ((image, ref_image), (aug, ref_aug))]
-    ok = max(errs) <= 1e-5 and result.suffix == ".pml" and n["deposit_fwd"] == 3
+    ok = max(errs) <= 1e-5 and result.suffix == ".pml" and fwd_total(n) == 3
     emit({"phase": "examples", "case": "voxelize_complex_lig61_pocket407_dim48_c12", "max_abs_err_vs_dense": errs[0],
           "max_abs_err_vs_dense_rot_trans05": errs[1], "tol": 1e-5, "session": result.name, "launches": n,
           "seconds": seconds, "ok": bool(ok)})
@@ -1944,10 +1970,10 @@ def phase_examples(lib4096: Path, tmp: Path) -> dict:
         raise SystemExit(f"examples: torch_multihost.py failed: {proc.stderr[-2000:]}")
     out = proc.stdout
     n = json.loads(out.strip().splitlines()[-1])
-    if n["deposit_prep"] != n["deposit_fwd"]:
+    if n["deposit_prep"] != fwd_total(n):
         raise SystemExit(f"examples: torch_multihost.py launched deposit_fwd without deposit_prep: {n}")
     add_prep_launches(n["deposit_prep"])
-    launches[1] += n["deposit_fwd"]
+    launches[1] += fwd_total(n)
     mass = float(re.search(r"global mass = ([0-9.]+)", out).group(1))
     coords, weights, mask, _ = torch_multihost.local_rows(0)
     want = float(voxelize_batch(torch.as_tensor(coords), torch.as_tensor(weights),
@@ -1956,7 +1982,7 @@ def phase_examples(lib4096: Path, tmp: Path) -> dict:
                                 random_rotation=True).double().sum())
     rel = abs(mass - want) / want
     ok = (rel <= 1e-5 and "streamed 64 molecules in 4 batches" in out and "streamed 32 local molecules in 2 batches"
-          in out and "backend nccl" in out and n["deposit_fwd"] == 1 + 4 + 2)
+          in out and "backend nccl" in out and fwd_total(n) == 1 + 4 + 2)
     emit({"phase": "examples", "case": "multihost_1_rank_nccl_32_rows_dim32_c4_rot_trans05_stream_64",
           "global_mass": mass, "dense_mass": want, "rel_err": rel, "tol": 1e-5, "launches": n,
           "seconds_with_start": seconds, "stdout": out.strip().splitlines()[:-1], "ok": bool(ok)})
@@ -2394,6 +2420,10 @@ def main() -> int:
     prot = load_golden("protein_single_gaussian")
     lig_xyz = torch.as_tensor(lig["coords"] - lig["center"], device=dev)
     prot_xyz = torch.as_tensor(prot["coords"] - prot["center"], device=dev)
+    # the complex cell's molecule: the 10gs ligand and protein about the ligand's mean
+    lig_t = load_golden("lig_types_gaussian")["coords"].astype(np.float32)
+    cplx_xyz = torch.as_tensor(np.concatenate([lig_t, prot["coords"].astype(np.float32)])
+                               - lig_t.astype(np.float64).mean(0).astype(np.float32), device=dev)
     rng = np.random.default_rng(0)
 
     def inputs(xyz, b, c):
@@ -2447,6 +2477,12 @@ def main() -> int:
         ("lig_dim40_c12_bf16", lig_xyz, 12, 2, 40, 0.5, "gaussian", torch.bfloat16, None, False),
         # a large batch of small grids
         ("lig512_dim32_gauss_bf16", lig_xyz, 4, 512, 32, 0.5, "gaussian", torch.bfloat16, None, False),
+        # the benchmark cells' tile launches: 16 proteins at 128^3 (wide
+        # lanes) in every dtype, 16 complexes at 48^3 (narrow lanes)
+        ("prot16_dim128_gauss_f32", prot_xyz, 1, 16, 128, 0.5, "gaussian", torch.float32, None, False),
+        ("prot16_dim128_gauss_bf16", prot_xyz, 1, 16, 128, 0.5, "gaussian", torch.bfloat16, None, False),
+        ("prot16_dim128_gauss_fp8", prot_xyz, 1, 16, 128, 0.5, "gaussian", torch.float8_e4m3fn, None, False),
+        ("complex16_dim48_gauss_f32", cplx_xyz, 1, 16, 48, 0.5, "gaussian", torch.float32, None, False),
     ]
 
     def prepared(xyz, c, b, dim, res, density, slab, channelwise):
@@ -2464,6 +2500,7 @@ def main() -> int:
 
     failed = []
     notrunc_errs = {"fwd": [], "bwd": []}
+    tile_errs = []  # the exact cutoff's f32 tile launches against the plain version
     for name, xyz, c, b, dim, res, density, odt, slab, channelwise in cases:
         spec, rows, wt, ranges, dl, gaussian = prepared(xyz, c, b, dim, res, density, slab, channelwise)
         nt = density == "gaussian_notrunc"
@@ -2477,13 +2514,15 @@ def main() -> int:
         bitwise = same_bits(got, again)
         ok = bool(np.isfinite(err) and err <= tol and torch.isfinite(got.float()).all() and bitwise)
         entry = deposit.fwd_launch(b, wt.shape[2], wt.shape[1], dl, spec, gaussian, odt, nt)[0]
-        plan = (deposit.notrunc_brick if entry == "deposit_fwd_notrunc" else deposit.brick)(b, wt.shape[1], dl, dim,
-                                                                                            odt)
+        plan = (deposit.tile_brick(b, wt.shape[1], dl, dim, odt, nt) if entry == "deposit_fwd_tile"
+                else deposit.brick(b, wt.shape[1], dl, dim, odt))
         emit({"phase": "kernel_vs_plain", "case": name, "shape": list(got.shape), "out_dtype": str(odt),
               "max_abs_err": err, "tol": tol, "two_launches_bitwise_equal": bitwise,
               "launch": entry, "plan": plan._asdict(), "ok": ok})
         if nt and odt == torch.float32:
             notrunc_errs["fwd"].append(err)
+        elif entry == "deposit_fwd_tile" and odt == torch.float32:
+            tile_errs.append(err)
         if not ok:
             failed.append(name)
     # an all-masked batch at the headline shape: an exact zero grid.  Masked
@@ -2658,7 +2697,8 @@ def main() -> int:
                 "kernel_ms": ms, "kernel_ms_back_to_back": ms_back_to_back, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "kernel_vs_plain_err": kerr, "out_bytes": out_bytes,
                 "blocks": info["blocks"], "resident_blocks_per_sm": info["resident_per_sm"], "waves": info["waves"],
-                "brick": {k: info[k] for k in ("dt", "ht", "kct", "run", "threads", "passes")},
+                "launch": deposit.fwd_launch(wt.shape[0], wt.shape[2], wt.shape[1], dl, spec, gaussian, odt)[0],
+                "plan": {k: v for k, v in info.items() if k not in ("blocks", "resident_per_sm", "waves")},
                 "write_tb_s": out_bytes / (ms * 1e-3) / 1e12}
         emit(line)
         if not ok or kerr > tol:
@@ -2736,6 +2776,31 @@ def main() -> int:
                                                                torch.ones(vp, device=dev), spec=spec, mask=p_mask)
         row1.append(check_and_time(1, f"forward_single_protein_dim{dim}_f32", out, ref, rows, wt, ranges, spec, dl,
                                    gaussian, torch.float32, launches))
+    # the protein cell's call: 16 proteins at 128^3 through forward_batch (the
+    # tile kernel, wide lanes), against the plain preparation and deposit
+    # from the same staged batch and transform table
+    from molvoxel_torch.api.voxelizer import _generator
+    from molvoxel_torch.core.transform import draw_transform_table
+
+    kw16 = launch_plan_cells(1)["protein128.batch16"][1][0]
+    spec128 = GridSpec(0.5, 128)
+    vox = create_voxelizer(device=DEVICE, resolution=0.5, dimension=128)
+    reset_launches()
+    out = vox.forward_batch(**kw16)
+    torch.cuda.synchronize()
+    n16 = launch_counts()
+    if n16["deposit_fwd_tile"] != 1 or n16["deposit_fwd"] != 0:
+        raise SystemExit(f"forward_batch of 16 proteins launched {n16}, not the tile kernel once")
+    staged16 = staged_batch(kw16, dev)
+    table16 = deposit.Transforms(torch.as_tensor(draw_transform_table(_generator(kw16["key"]), 16, 0.5, True),
+                                                 device=dev), True, True)
+    plan16 = deposit.PrepPlan(spec128, True, 0.5)
+    want = plain_prepare(*staged16, table16, plan16)
+    ref = deposit.deposit_plain(want.rows, want.weights, want.ranges, spec=spec128, dl=want.dl, gaussian=True)
+    got = deposit.deposit_prep(*staged16, table16, plan16)
+    row1.append(check_and_time(1, "forward_batch_16prot_dim128_c1_f32", out, ref.reshape(out.shape), got.rows,
+                               got.weights, got.ranges, spec128, got.dl, True, torch.float32, 1))
+    del out, ref, want, got, staged16
     # gaussian_notrunc on the protein at 128^3, on the route the routing rule
     # names: one launch (the kernel with the notrunc threshold row) or none
     # (the separable product)
@@ -2752,9 +2817,14 @@ def main() -> int:
           "route": nt_route, "launches": nt_launches, "max_abs_err_vs_dense": err, "tol": 1e-5})
     if err > 1e-5 or nt_launches != (1 if nt_route == "kernel" else 0):
         raise SystemExit("main path protein notrunc failed")
-    # row 1 is timed on the headline batch; its launches count all four calls
-    kernels[1] = dict(row1[0], launches=sum(ln["launches"] for ln in row1) + nt_launches,
-                      max_abs_err=max(ln["kernel_vs_plain_err"] for ln in row1))
+    # row 1 is timed on the headline batch, on the brick; its main path
+    # launches are the brick's; the tile kernel's lines (the proteins) time
+    # the tile kernel's entry, timed on the protein cell's call
+    bricks = [ln for ln in row1 if ln["launch"] == "deposit_fwd"]
+    tiles = [ln for ln in row1 if ln["launch"] == "deposit_fwd_tile"]
+    kernels[1] = dict(row1[0], launches=sum(ln["launches"] for ln in bricks),
+                      max_abs_err=max(ln["kernel_vs_plain_err"] for ln in bricks))
+    tile_head = next(ln for ln in tiles if ln["case"] == "forward_batch_16prot_dim128_c1_f32")
 
     # rows 2 and 3: ragged and 256^3 grids, gaussian then binary
     lig_w = torch.as_tensor(lig_feat, device=dev)[None]
@@ -2819,12 +2889,12 @@ def main() -> int:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
     train_launches = launch_counts()
     steps = len(losses)
-    ok = (all(np.isfinite(losses)) and train_launches["deposit_fwd"] == steps
+    ok = (all(np.isfinite(losses)) and fwd_total(train_launches) == steps
           and train_launches["deposit_bwd"] == steps and train_launches["deposit_prep"] == steps)
     emit({"phase": "main_path_train", "row": 4, "case": "train_step_64lig_dim64_c4_f32_cnn16_32_64",
           "steps": steps, "losses": losses, "launches": train_launches,
           "prep_launches_per_step": train_launches["deposit_prep"] / steps,
-          "fwd_launches_per_step": train_launches["deposit_fwd"] / steps,
+          "fwd_launches_per_step": fwd_total(train_launches) / steps,
           "bwd_launches_per_step": train_launches["deposit_bwd"] / steps,
           "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
           "in_step_fwd_ms_median": timer.median_ms("deposit_fwd"),
@@ -2927,7 +2997,7 @@ def main() -> int:
         PREP_READ["phase"] = "packing"
         phase_packing(lig_xyz, rng)
         by_phase = {row: {} for row in (1, 2, 3, 4)}
-        by_phase[1]["convergence"] = pose_launches["deposit_fwd"]
+        by_phase[1]["convergence"] = fwd_total(pose_launches)
         by_phase[4]["convergence"] = pose_launches["deposit_bwd"]
         for row, entry in notrunc.items():
             by_phase[row]["notrunc_routing"] = entry["launches"]
@@ -2974,7 +3044,18 @@ def main() -> int:
         "launch_floor_ms": floor_ms, "launches_by_phase": prep_by_phase,
         "timed": [{k: ln[k] for k in ("case", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
                   for ln in prep_timed]}
-    emit({"kernels": [prep_entry] + [
+    tile_by_phase = {name: n for name, n in PREP_READ["tile_by_phase"].items() if name != "kernel_vs_plain" and n}
+    tile_entry = {
+        "name": "deposit_fwd_tile_kernel (table rows 1-3 on molecules of more than one chunk)", "route": "cuda",
+        "source": "molvoxel_torch/csrc/deposit_fwd.cu",
+        "replaces": f"{REPLACES[1]}, on molecules of more than one chunk (proteins, complexes)",
+        "launches": sum(tile_by_phase.values()),
+        "max_abs_err": max([ln["kernel_vs_plain_err"] for ln in tiles] + tile_errs),
+        "ms": tile_head["kernel_ms"], "plain_ms": tile_head["plain_ms"], "bound_ms": tile_head["bound_ms"],
+        "bound_by": tile_head["bound_by"], "library_ms": None, "timed_case": tile_head["case"],
+        "launches_by_phase": tile_by_phase,
+        "timed": [{k: ln[k] for k in ("case", "kernel_ms", "plain_ms", "bound_ms", "bound_by")} for ln in tiles]}
+    emit({"kernels": [prep_entry, tile_entry] + [
         {"name": f"{'deposit_bwd' if row == 4 else 'deposit_fwd'} (table row {row})", "route": "cuda",
          "source": f"molvoxel_torch/csrc/{'deposit_bwd' if row == 4 else 'deposit_fwd'}.cu",
          "replaces": REPLACES[row], "launches": k["launches"], "max_abs_err": k["max_abs_err"],

@@ -21,7 +21,8 @@
 // Inputs, prepared in torch (molvoxel_torch/ops/deposit.py):
 //   atoms   (B, 8, Vp) f32 rows [x', y, z, r2_thresh, coef, 0, 0, 0]
 //   weights (B, C, Vp) f32, zero for padded / masked atoms
-//   ranges  (B, nht, nvc, 2) i32 [d_lo, d_hi) per (tile of ht h rows, atom chunk)
+//   ranges  (B, nht, nvc, 2) i32 [d_lo, d_hi) per (tile of ht h rows, atom chunk):
+//           ht the brick's rows, or a tile launch's range rows
 // Output: (B, C, Dl, H*W) in f32, bf16 or fp8-e4m3; accumulation is f32 in
 // registers and the cast happens once, at the store.
 //
@@ -67,30 +68,37 @@
 //   is a multiple of 16; otherwise (dims 20 and 33, for example) by element.
 // - One writer per output element, no atomics, no TF32 (no tensor cores).
 //
-// Threshold rows (gaussian_notrunc: r2_thresh = r^2 * notrunc_factor, a
-// reach of about 3.2 r) of molecules of more than one chunk (proteins,
-// complexes) take a second kernel, deposit_fwd_notrunc_kernel.  At that
-// reach the brick above keeps every atom whose sphere reaches its slab
-// anywhere across the molecule, and a protein's blocks walk a dozen chunks
-// each, three barriers a chunk, for compares that mostly miss.  So:
-// - Sub-bricks: a warp owns 4 planes x 4 rows x 16 columns (32 for fp8);
-//   lane (dd, hh, half) owns one row's 8 (16) consecutive w, one or two
-//   16-byte stores a channel.  A block is bd x bh x bw such warps (the
-//   wrapper takes the first of a short list, 4 warps first, that gives
-//   the launch enough blocks; measured best on every protein shape).
+// Molecules of more than one chunk (proteins, complexes), gaussian or
+// binary, at the exact cutoff or on threshold rows (gaussian_notrunc:
+// r2_thresh = r^2 * notrunc_factor, a reach of about 3.2 r), take a second
+// kernel, deposit_fwd_tile_kernel.  A brick of whole rows keeps every atom
+// whose sphere reaches its slab anywhere across the row: a protein's blocks
+// walk 8-24 chunks each, three barriers a chunk, and every thread tests
+// every kept atom on each of its passes, for compares that mostly miss (an
+// atom of radius 1 A reaches 5 of a brick's 64 rows).  So:
+// - Sub-bricks: a warp owns 4 planes x 4 rows x 16 columns (32 for fp8),
+//   or twice the columns with wide lanes; lane (dd, hh, half) owns one
+//   row's 8 (16 fp8) consecutive w, or twice that, in 16-byte stores.  A
+//   block is bd x bh x bw such warps; the wrapper picks the lanes' width
+//   and the block from the shapes and the reach (``tile_brick``): wide
+//   lanes spread a tile's walk over more voxels.
 // - Culling twice, in 3-D.  The block's warps take the active chunks (the
 //   plane ranges of every range row the tile meets, a ballot mask each warp
-//   builds for itself) one a warp a round, load their 64 atoms straight from
-//   global memory and keep those whose threshold sphere reaches the block's
-//   box; one barrier a round puts them in a shared list in chunk, then atom
-//   order.  Each warp then keeps, from that list and in its order, the atoms
-//   that reach its own sub-brick, 32 at a time.
-// - Tables a warp: ex[4], ey[4], ez[16 or 32] of each kept atom over its
-//   sub-brick (the same expf of the same squares as the brick kernel), so
-//   a lane's atom costs the exact cutoff compares and one FMA a voxel.
+//   builds for itself; the wrapper writes the ranges at the tiles' own rows)
+//   one a warp a round, load their 64 atoms straight from global memory and
+//   keep those whose sphere reaches the block's box; one barrier a round
+//   puts them in a shared list in chunk, then atom order.  Each warp then
+//   keeps, from that list and in its order, the atoms that reach its own
+//   sub-brick, 32 at a time.  A tile no chunk reaches stores its zeros
+//   without loading an atom.
+// - Tables a warp (gaussian): ex[4], ey[4] and ez over the sub-brick's
+//   columns for each kept atom (the same expf of the same squares as the brick
+//   kernel), so a lane's atom costs the exact cutoff compares and one FMA a
+//   voxel; binary adds the weight and needs none.
 // - The same arithmetic and order as the brick kernel (the exact cutoff,
-//   m = ex * ey, w * m, one FMA with ez, chunk then atom order), so each
-//   voxel gets the brick kernel's bits; f32 sums, one cast at the store.
+//   m = ex * ey, w * m, one FMA with ez, or the weight alone; chunk then
+//   atom order), so each voxel gets the brick kernel's bits; f32 sums, one
+//   cast at the store.
 // Single-chunk molecules (ligand batches) keep the brick kernel, whose slab
 // test already sees only that chunk.
 
@@ -442,10 +450,10 @@ __global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_kernel(const Args 
   }
 }
 
-constexpr int kNtSide = 4;        // planes and rows of a warp's sub-brick
-constexpr int kNtWarpCap = 32;    // atoms a warp deposits per fill of its factor tables
+constexpr int kTileSide = 4;      // planes and rows of a warp's sub-brick
+constexpr int kTileWarpCap = 32;  // atoms a warp deposits per fill of its factor tables
 
-struct NtArgs {
+struct TileArgs {
   const float* atoms;
   const float* weights;
   const int* ranges;
@@ -453,7 +461,7 @@ struct NtArgs {
   int vp, channels, dl, dim;
   int nct, bd, bh, bw;  // channel groups; warps of a block along d, h and w
   int ndt, nht, nwt;    // tiles along d, h and w
-  int hr, nhr;          // rows of a plane-range row (the brick kernel's ht), and range rows
+  int hr, nhr;          // rows of a plane-range row, and range rows
   float res, half_width;
 };
 
@@ -475,21 +483,31 @@ __device__ __forceinline__ bool reaches(float x, float y, float z, float r2, flo
   return gx * gx + gy * gy + gz * gz <= r2 * 1.00001f + 1e-5f;
 }
 
-template <int kCT, typename OutT>
-__global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel(const NtArgs a) {
-  constexpr int kLW = sizeof(OutT) == 1 ? 16 : 8;  // consecutive w a lane owns: one or two 16-byte runs
+// Consecutive w a narrow tile lane owns: 8 (two 16-byte runs of f32, one of
+// bf16) or 16 fp8 (one run); a wide lane owns twice as many.
+template <typename OutT>
+__host__ __device__ constexpr int tile_lane_w() {
+  return sizeof(OutT) == 1 ? 16 : 8;
+}
+
+template <bool kGaussian, int kCT, int kLW, typename OutT>
+__global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_tile_kernel(const TileArgs a) {
+  // kLW: consecutive w a lane owns, in runs of 16 bytes; a narrow lane keeps
+  // their positions in registers, a wide one computes them where used (the
+  // same rounding)
+  constexpr bool kWide = kLW > tile_lane_w<OutT>();
   constexpr int kCols = kRows + kCT;
-  constexpr int kPer = 2 * kNtSide + 2 * kLW;      // table entries of an atom: ex[4], ey[4], ez[2 kLW]
+  constexpr int kPer = 2 * kTileSide + 2 * kLW;    // table entries of an atom: ex[4], ey[4], ez[2 kLW]
   static_assert(kLW * kCT <= kAccMax, "accumulators exceed the budget");
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5, nwarps = blockDim.x >> 5;
   const int cap = nwarps * kChunk;  // atoms the block's kept list holds: a chunk a warp, one round
   extern __shared__ __align__(16) float smem[];
-  float4* s_wat = reinterpret_cast<float4*>(smem);            // [warps][kNtWarpCap] x, y, z, r2
-  float* s_tab = smem + 4 * nwarps * kNtWarpCap;              // [warps][kNtWarpCap][kPer] factor tables
-  float* s_wcf = s_tab + nwarps * kNtWarpCap * kPer;          // [warps][kNtWarpCap] coef
-  float* s_ww = s_wcf + nwarps * kNtWarpCap;                  // [warps][kNtWarpCap][kCT] weights
-  float* s_blk = s_ww + nwarps * kNtWarpCap * kCT;            // [kCols][cap] the block's kept atoms
+  float4* s_wat = reinterpret_cast<float4*>(smem);         // [warps][kTileWarpCap] x, y, z, r2
+  float* s_tab = smem + 4 * nwarps * kTileWarpCap;         // [warps][kTileWarpCap][kPer] factor tables
+  float* s_wcf = s_tab + nwarps * kTileWarpCap * kPer;     // [warps][kTileWarpCap] coef
+  float* s_ww = s_wcf + nwarps * kTileWarpCap;             // [warps][kTileWarpCap][kCT] weights
+  float* s_blk = s_ww + nwarps * kTileWarpCap * kCT;       // [kCols][cap] the block's kept atoms
   __shared__ int s_cnt[2][kMaxThreads / 32];
   int item = blockIdx.x;
   const int wi = item % a.nwt;
@@ -503,26 +521,26 @@ __global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel(con
   const float res = a.res, hw = a.half_width;
 
   // the block's tile and this warp's sub-brick of 4 planes x 4 rows x 2 kLW columns
-  const int d0 = di * kNtSide * a.bd, h0 = ti * kNtSide * a.bh, w0 = wi * 2 * kLW * a.bw;
-  const int d_last = min(d0 + kNtSide * a.bd, a.dl) - 1, h_last = min(h0 + kNtSide * a.bh, a.dim) - 1;
+  const int d0 = di * kTileSide * a.bd, h0 = ti * kTileSide * a.bh, w0 = wi * 2 * kLW * a.bw;
+  const int d_last = min(d0 + kTileSide * a.bd, a.dl) - 1, h_last = min(h0 + kTileSide * a.bh, a.dim) - 1;
   const int w_last = min(w0 + 2 * kLW * a.bw, a.dim) - 1;
   const int wd = warp / (a.bh * a.bw), wh = (warp / a.bw) % a.bh, ww = warp % a.bw;
-  const int sd0 = d0 + kNtSide * wd, sh0 = h0 + kNtSide * wh, sw0 = w0 + 2 * kLW * ww;
+  const int sd0 = d0 + kTileSide * wd, sh0 = h0 + kTileSide * wh, sw0 = w0 + 2 * kLW * ww;
   const bool warp_live = sd0 < a.dl && sh0 < a.dim && sw0 < a.dim;
   const float3 blo = make_float3(axis_pos(d0, res, hw), axis_pos(h0, res, hw), axis_pos(w0, res, hw));
   const float3 bhi = make_float3(axis_pos(d_last, res, hw), axis_pos(h_last, res, hw), axis_pos(w_last, res, hw));
   const float3 wlo = make_float3(axis_pos(sd0, res, hw), axis_pos(sh0, res, hw), axis_pos(sw0, res, hw));
-  const float3 whi = make_float3(axis_pos(min(sd0 + kNtSide, a.dl) - 1, res, hw),
-                                 axis_pos(min(sh0 + kNtSide, a.dim) - 1, res, hw),
+  const float3 whi = make_float3(axis_pos(min(sd0 + kTileSide, a.dl) - 1, res, hw),
+                                 axis_pos(min(sh0 + kTileSide, a.dim) - 1, res, hw),
                                  axis_pos(min(sw0 + 2 * kLW, a.dim) - 1, res, hw));
 
   // this lane's voxels: plane sd0 + dd, row sh0 + hh, columns wl .. wl + kLW - 1
   const int dd = lane >> 3, hh = (lane >> 1) & 3, wg = lane & 1;
   const int d = sd0 + dd, h = sh0 + hh, wl = sw0 + wg * kLW;
   const float px = axis_pos(d, res, hw), py = axis_pos(h, res, hw);
-  float pz[kLW];
+  float pz[kWide ? 1 : kLW];
 #pragma unroll
-  for (int i = 0; i < kLW; ++i) pz[i] = axis_pos(wl + i, res, hw);
+  for (int i = 0; i < (kWide ? 1 : kLW); ++i) pz[i] = axis_pos(wl + i, res, hw);
 
   const int nvc = a.vp / kChunk;
   const float* a_row = a.atoms + static_cast<size_t>(b) * 8 * a.vp;
@@ -531,21 +549,31 @@ __global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel(con
   // The active chunks, in chunk order, held by every warp at once (no
   // barrier): lane L keeps the mask of chunks 32 L .. 32 L + 31 whose range,
   // on any plane-range row the tile's rows meet, reaches the tile's planes.
+  // The ranges of kSegs segments of 32 chunks are loaded before any is used.
   unsigned my_mask = 0u;
   {
+    constexpr int kSegs = 4;
     const int2* r_row = reinterpret_cast<const int2*>(a.ranges) + static_cast<size_t>(b) * a.nhr * nvc;
     const int r_lo = h0 / a.hr, r_hi = h_last / a.hr;
-    for (int seg = 0; seg * 32 < nvc; ++seg) {
-      const int vc = seg * 32 + lane;
-      bool act = false;
-      if (vc < nvc) {
-        for (int rr = r_lo; rr <= r_hi; ++rr) {
-          const int2 r = r_row[static_cast<size_t>(rr) * nvc + vc];
-          act = act || (r.y > d0 && r.x <= d_last);
+    for (int seg0 = 0; seg0 * 32 < nvc; seg0 += kSegs) {
+      bool act[kSegs];
+#pragma unroll
+      for (int q = 0; q < kSegs; ++q) act[q] = false;
+      for (int rr = r_lo; rr <= r_hi; ++rr) {
+        int2 r[kSegs];
+#pragma unroll
+        for (int q = 0; q < kSegs; ++q) {
+          const int vc = (seg0 + q) * 32 + lane;
+          r[q] = vc < nvc ? __ldg(r_row + static_cast<size_t>(rr) * nvc + vc) : make_int2(a.dl, 0);
         }
+#pragma unroll
+        for (int q = 0; q < kSegs; ++q) act[q] = act[q] || (r[q].y > d0 && r[q].x <= d_last);
       }
-      const unsigned m = __ballot_sync(0xffffffffu, act);
-      if (lane == seg) my_mask = m;
+#pragma unroll
+      for (int q = 0; q < kSegs; ++q) {
+        const unsigned m = __ballot_sync(0xffffffffu, act[q]);
+        if (lane == seg0 + q) my_mask = m;
+      }
     }
   }
   const int my_cnt = __popc(my_mask);
@@ -565,26 +593,27 @@ __global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel(con
 #pragma unroll
     for (int k = 0; k < kCT; ++k) acc[i][k] = 0.0f;
 
-  float4* wat = s_wat + warp * kNtWarpCap;
-  float* wcf = s_wcf + warp * kNtWarpCap;
-  float* wwt = s_ww + warp * kNtWarpCap * kCT;
-  float* tab = s_tab + warp * kNtWarpCap * kPer;
+  float4* wat = s_wat + warp * kTileWarpCap;
+  float* wcf = s_wcf + warp * kTileWarpCap;
+  float* wwt = s_ww + warp * kTileWarpCap * kCT;
+  float* tab = s_tab + warp * kTileWarpCap * kPer;
 
   // Deposit the warp's list of n atoms: their factor tables over the
-  // sub-brick, then every lane's voxels, atom by atom in list order.
+  // sub-brick (gaussian), then every lane's voxels, atom by atom in list
+  // order.
   auto deposit_list = [&](int n) {
     __syncwarp();  // the list is written
-    for (int e = lane; e < n * kPer; e += 32) {
+    for (int e = lane; kGaussian && e < n * kPer; e += 32) {
       const int k = e / kPer, i = e - k * kPer;
       const float4 at = wat[k];
       int idx;
       float p;
-      if (i < kNtSide) {
+      if (i < kTileSide) {
         idx = sd0 + i, p = at.x;
-      } else if (i < 2 * kNtSide) {
-        idx = sh0 + i - kNtSide, p = at.y;
+      } else if (i < 2 * kTileSide) {
+        idx = sh0 + i - kTileSide, p = at.y;
       } else {
-        idx = sw0 + i - 2 * kNtSide, p = at.z;
+        idx = sw0 + i - 2 * kTileSide, p = at.z;
       }
       const float dv = __fsub_rn(axis_pos(idx, res, hw), p);
       const float d2 = __fmul_rn(dv, dv);
@@ -601,19 +630,29 @@ __global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel(con
       const float dy2 = __fmul_rn(dy, dy);
       if (dy2 > th) continue;  // dyz2 >= dy2: the atom misses the lane's row
       const float* tk = tab + k * kPer;
-      const float m = tk[dd] * tk[kNtSide + hh];
-      const float* ez = tk + 2 * kNtSide + wg * kLW;
+      const float* ez = tk + 2 * kTileSide + wg * kLW;
       float mk[kCT];
+      if (kGaussian) {
+        const float m = tk[dd] * tk[kTileSide + hh];
 #pragma unroll
-      for (int c = 0; c < kCT; ++c) mk[c] = wwt[k * kCT + c] * m;
+        for (int c = 0; c < kCT; ++c) mk[c] = wwt[k * kCT + c] * m;
+      } else {
+#pragma unroll
+        for (int c = 0; c < kCT; ++c) mk[c] = wwt[k * kCT + c];
+      }
 #pragma unroll
       for (int i = 0; i < kLW; ++i) {
-        const float dz = __fsub_rn(pz[i], at.z);
+        const float dz = __fsub_rn(kWide ? axis_pos(wl + i, res, hw) : pz[kWide ? 0 : i], at.z);
         const float dyz2 = __fadd_rn(dy2, __fmul_rn(dz, dz));
         if (dyz2 <= th) {
-          const float e = ez[i];
 #pragma unroll
-          for (int c = 0; c < kCT; ++c) acc[i][c] = fmaf(mk[c], e, acc[i][c]);
+          for (int c = 0; c < kCT; ++c) {
+            if (kGaussian) {
+              acc[i][c] = fmaf(mk[c], ez[i], acc[i][c]);
+            } else {
+              acc[i][c] += mk[c];
+            }
+          }
         }
       }
     }
@@ -621,7 +660,7 @@ __global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel(con
   };
 
   // Process the block's kept list [0, nk): each warp takes, in list order,
-  // the atoms that reach its sub-brick, kNtWarpCap at a time.
+  // the atoms that reach its sub-brick, kTileWarpCap at a time.
   auto process = [&](int nk) {
     __syncthreads();  // the block's list is written
     if (warp_live) {
@@ -630,12 +669,11 @@ __global__ void __launch_bounds__(kMaxThreads, 3) deposit_fwd_notrunc_kernel(con
         const int j = base + lane;
         bool keep = false;
         if (j < nk) {
-          keep = reaches(s_blk[j], s_blk[cap + j], s_blk[2 * cap + j], s_blk[3 * cap + j], wlo,
-                         whi);
+          keep = reaches(s_blk[j], s_blk[cap + j], s_blk[2 * cap + j], s_blk[3 * cap + j], wlo, whi);
         }
         const unsigned bal = __ballot_sync(0xffffffffu, keep);
         const int cnt = __popc(bal);
-        if (nw + cnt > kNtWarpCap) {  // uniform: deposit what the list holds first
+        if (nw + cnt > kTileWarpCap) {  // uniform: deposit what the list holds first
           deposit_list(nw);
           nw = 0;
         }
@@ -828,67 +866,73 @@ int make_args(Args* a, const void* atoms, const void* weights, const void* range
   return 0;
 }
 
-using NtKernel = void (*)(NtArgs);
+using TileKernel = void (*)(TileArgs);
 
-template <int kCT, typename OutT>
-NtKernel notrunc_kernel_or_null() {
-  constexpr int kLW = sizeof(OutT) == 1 ? 16 : 8;
+template <bool kGaussian, int kCT, int kLW, typename OutT>
+TileKernel tile_kernel_or_null() {
   if constexpr (kLW * kCT <= kAccMax) {
-    return deposit_fwd_notrunc_kernel<kCT, OutT>;
+    return deposit_fwd_tile_kernel<kGaussian, kCT, kLW, OutT>;
   } else {
     return nullptr;
   }
 }
 
-template <typename OutT>
-NtKernel pick_notrunc(int kct) {
+template <int kLW, typename OutT>
+TileKernel pick_tile_width(int gaussian, int kct) {
   switch (kct) {
     case 1:
-      return notrunc_kernel_or_null<1, OutT>();
+      return gaussian ? tile_kernel_or_null<true, 1, kLW, OutT>() : tile_kernel_or_null<false, 1, kLW, OutT>();
     case 2:
-      return notrunc_kernel_or_null<2, OutT>();
+      return gaussian ? tile_kernel_or_null<true, 2, kLW, OutT>() : tile_kernel_or_null<false, 2, kLW, OutT>();
     case 4:
-      return notrunc_kernel_or_null<4, OutT>();
+      return gaussian ? tile_kernel_or_null<true, 4, kLW, OutT>() : tile_kernel_or_null<false, 4, kLW, OutT>();
     default:
       return nullptr;
   }
 }
 
-NtKernel pick_notrunc_kernel(int out_kind, int kct) {
-  if (out_kind == 0) return pick_notrunc<float>(kct);
-  if (out_kind == 1) return pick_notrunc<__nv_bfloat16>(kct);
-  return pick_notrunc<__nv_fp8_storage_t>(kct);
+// lw: the lane's run of w, narrow (tile_lane_w) or wide (twice that).
+template <typename OutT>
+TileKernel pick_tile(int gaussian, int kct, int lw) {
+  constexpr int kNarrow = tile_lane_w<OutT>();
+  if (lw == kNarrow) return pick_tile_width<kNarrow, OutT>(gaussian, kct);
+  if (lw == 2 * kNarrow) return pick_tile_width<2 * kNarrow, OutT>(gaussian, kct);
+  return nullptr;
 }
 
-// Columns of a warp's sub-brick: two lanes of 8 values (16 fp8).
-int notrunc_cols(int out_kind) { return out_kind == 2 ? 32 : 16; }
+TileKernel pick_tile_kernel(int out_kind, int gaussian, int kct, int lw) {
+  if (out_kind == 0) return pick_tile<float>(gaussian, kct, lw);
+  if (out_kind == 1) return pick_tile<__nv_bfloat16>(gaussian, kct, lw);
+  return pick_tile<__nv_fp8_storage_t>(gaussian, kct, lw);
+}
 
-size_t notrunc_smem_bytes(int kct, int warps, int out_kind) {
-  const size_t per = 2 * kNtSide + notrunc_cols(out_kind);  // table entries of an atom
-  return (static_cast<size_t>(warps) * kNtWarpCap * (4 + per + 1 + kct) +
+size_t tile_smem_bytes(int kct, int warps, int lw) {
+  const size_t per = 2 * kTileSide + 2 * lw;  // table entries of an atom
+  return (static_cast<size_t>(warps) * kTileWarpCap * (4 + per + 1 + kct) +
           static_cast<size_t>(kRows + kct) * warps * kChunk) * sizeof(float);
 }
 
-int allow_notrunc_smem(NtKernel kernel, size_t smem) {
-  static NtKernel seen[16];
-  static size_t opted[16];
+int allow_tile_smem(TileKernel kernel, size_t smem) {
+  static TileKernel seen[32];
+  static size_t opted[32];
   if (smem <= 40 * 1024) return 0;
   int i = 0;
-  while (i < 16 && seen[i] != nullptr && seen[i] != kernel) ++i;
-  if (i < 16 && seen[i] == kernel && opted[i] >= smem) return 0;
+  while (i < 32 && seen[i] != nullptr && seen[i] != kernel) ++i;
+  if (i < 32 && seen[i] == kernel && opted[i] >= smem) return 0;
   const cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (i < 16) seen[i] = kernel, opted[i] = smem;
+  if (i < 32) seen[i] = kernel, opted[i] = smem;
   return 0;
 }
 
-// Fills the threshold-row launch arguments, or returns a cudaError_t.
-int make_notrunc_args(NtArgs* a, const void* atoms, const void* weights, const void* ranges, void* out, int batch,
-                      int vp, int channels, int dl, int dim, float res, float half_width, int out_kind, int kct,
-                      int bd, int bh, int bw, int hr, long long* blocks) {
+// Fills the tile launch arguments, or returns a cudaError_t.
+int make_tile_args(TileArgs* a, const void* atoms, const void* weights, const void* ranges, void* out, int batch,
+                   int vp, int channels, int dl, int dim, float res, float half_width, int out_kind, int kct, int lw,
+                   int bd, int bh, int bw, int hr, long long* blocks) {
   if (batch <= 0 || vp <= 0 || vp % kChunk != 0 || channels <= 0 || dl <= 0 || dim <= 0 || out_kind < 0 ||
-      out_kind > 2 || bd < 1 || bh < 1 || bw < 1 || bd * bh * bw * 32 > kMaxThreads || hr < 1 || hr > dim) {
+      out_kind > 2 || lw < 1 || bd < 1 || bh < 1 || bw < 1 || bd * bh * bw * 32 > kMaxThreads || hr < 1 ||
+      hr > dim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (misaligned(atoms, kStoreBytes) || misaligned(weights, kStoreBytes) || misaligned(out, kStoreBytes) ||
@@ -902,9 +946,9 @@ int make_notrunc_args(NtArgs* a, const void* atoms, const void* weights, const v
   a->vp = vp, a->channels = channels, a->dl = dl, a->dim = dim;
   a->nct = (channels + kct - 1) / kct;
   a->bd = bd, a->bh = bh, a->bw = bw;
-  a->ndt = (dl + kNtSide * bd - 1) / (kNtSide * bd);
-  a->nht = (dim + kNtSide * bh - 1) / (kNtSide * bh);
-  a->nwt = (dim + notrunc_cols(out_kind) * bw - 1) / (notrunc_cols(out_kind) * bw);
+  a->ndt = (dl + kTileSide * bd - 1) / (kTileSide * bd);
+  a->nht = (dim + kTileSide * bh - 1) / (kTileSide * bh);
+  a->nwt = (dim + 2 * lw * bw - 1) / (2 * lw * bw);
   a->hr = hr, a->nhr = (dim + hr - 1) / hr;
   a->res = res, a->half_width = half_width;
   *blocks = static_cast<long long>(batch) * a->nct * a->ndt * a->nht * a->nwt;
@@ -961,45 +1005,46 @@ int deposit_fwd_blocks(int batch, int vp, int channels, int dl, int dim, int gau
       resident_per_sm, reinterpret_cast<const void*>(kernel), threads, smem));
 }
 
-// Constants of the threshold-row launch: planes and rows of a warp's
-// sub-brick, and atoms a warp deposits per fill of its tables.
-int deposit_fwd_notrunc_side() { return kNtSide; }
-int deposit_fwd_notrunc_warp_cap() { return kNtWarpCap; }
+// Constants of the tile launch: planes and rows of a warp's sub-brick, and
+// atoms a warp deposits per fill of its tables.
+int deposit_fwd_tile_side() { return kTileSide; }
+int deposit_fwd_tile_warp_cap() { return kTileWarpCap; }
 
-// The threshold-row launch (gaussian only): blocks of bd x bh x bw warps,
-// each warp 4 planes x 4 rows x 16 columns (32 fp8), kct channels (1, 2 or
-// 4; 1 or 2 for fp8); ranges at hr rows (the brick kernel's).  Returns the
-// cudaError_t of the launch (0 on success); nothing is synchronised.
-int deposit_fwd_notrunc(const void* atoms, const void* weights, const void* ranges, void* out, int batch, int vp,
-                        int channels, int dl, int dim, float res, float half_width, int out_kind, int kct, int bd,
-                        int bh, int bw, int hr, void* stream) {
-  NtArgs a;
+// The tile launch (molecules of more than one chunk): blocks of bd x bh x
+// bw warps, each warp 4 planes x 4 rows x 2 lw columns, each lane lw
+// consecutive w (8 or 16; fp8 16 or 32), kct channels (kct x lw at most
+// 32); ranges at hr rows.  Returns the cudaError_t of the launch (0 on
+// success); nothing is synchronised.
+int deposit_fwd_tile(const void* atoms, const void* weights, const void* ranges, void* out, int batch, int vp,
+                     int channels, int dl, int dim, float res, float half_width, int gaussian, int out_kind, int kct,
+                     int lw, int bd, int bh, int bw, int hr, void* stream) {
+  TileArgs a;
   long long blocks = 0;
-  int rc = make_notrunc_args(&a, atoms, weights, ranges, out, batch, vp, channels, dl, dim, res, half_width,
-                             out_kind, kct, bd, bh, bw, hr, &blocks);
+  int rc = make_tile_args(&a, atoms, weights, ranges, out, batch, vp, channels, dl, dim, res, half_width, out_kind,
+                          kct, lw, bd, bh, bw, hr, &blocks);
   if (rc != 0) return rc;
-  const NtKernel kernel = pick_notrunc_kernel(out_kind, kct);
+  const TileKernel kernel = pick_tile_kernel(out_kind, gaussian, kct, lw);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = notrunc_smem_bytes(kct, bd * bh * bw, out_kind);
-  if ((rc = allow_notrunc_smem(kernel, smem)) != 0) return rc;
+  const size_t smem = tile_smem_bytes(kct, bd * bh * bw, lw);
+  if ((rc = allow_tile_smem(kernel, smem)) != 0) return rc;
   void* args[] = {&a};
   return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(blocks)),
                                            dim3(32 * bd * bh * bw), args, smem, static_cast<cudaStream_t>(stream)));
 }
 
-// The blocks of the threshold-row launch, and how many of them one SM holds
-// at once.  Returns a cudaError_t.
-int deposit_fwd_notrunc_blocks(int batch, int vp, int channels, int dl, int dim, int out_kind, int kct, int bd,
-                               int bh, int bw, int hr, long long* blocks, int* resident_per_sm) {
+// The blocks of the tile launch, and how many of them one SM holds at once.
+// Returns a cudaError_t.
+int deposit_fwd_tile_blocks(int batch, int vp, int channels, int dl, int dim, int gaussian, int out_kind, int kct,
+                            int lw, int bd, int bh, int bw, int hr, long long* blocks, int* resident_per_sm) {
   alignas(16) static float probe[4];
-  NtArgs a;
-  int rc = make_notrunc_args(&a, probe, probe, probe, probe, batch, vp, channels, dl, dim, 1.0f, 0.0f, out_kind,
-                             kct, bd, bh, bw, hr, blocks);
+  TileArgs a;
+  int rc = make_tile_args(&a, probe, probe, probe, probe, batch, vp, channels, dl, dim, 1.0f, 0.0f, out_kind, kct,
+                          lw, bd, bh, bw, hr, blocks);
   if (rc != 0) return rc;
-  const NtKernel kernel = pick_notrunc_kernel(out_kind, kct);
+  const TileKernel kernel = pick_tile_kernel(out_kind, gaussian, kct, lw);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = notrunc_smem_bytes(kct, bd * bh * bw, out_kind);
-  if ((rc = allow_notrunc_smem(kernel, smem)) != 0) return rc;
+  const size_t smem = tile_smem_bytes(kct, bd * bh * bw, lw);
+  if ((rc = allow_tile_smem(kernel, smem)) != 0) return rc;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       resident_per_sm, reinterpret_cast<const void*>(kernel), 32 * bd * bh * bw, smem));
 }

@@ -15,16 +15,19 @@ forward launch is one kernel, ``deposit_prep`` (its plain version,
   the density is negligible (``notrunc_r2_thresh``), and coef comes from the
   true r^2;
 - compute, in closed form, the depth planes [d_lo, d_hi) that each
-  (tile of ht rows, atom chunk) pair can reach (``plane_ranges``);
+  (tile of ht rows, atom chunk) pair can reach (``plane_ranges``, at the
+  forward launch's ``range_rows``);
 - expand channel-wise radii into virtual atoms (same position, radius r_c,
   weight only in channel c), so they run on the same kernel.
 
-The Python side plans the forward kernel's bricks (``brick``: dt depth
-planes x ht whole h rows a block, chosen per grid) and the backward's warps
-per atom (``bwd_warps_per_atom``).  Threshold rows (gaussian_notrunc,
-``notrunc=True``) take their own launches: the forward's warp
-sub-bricks (``notrunc_brick``) for molecules of more than one chunk, and
-the backward's atom walk in groups of ``BWD_NOTRUNC_GROUP`` columns.  ``deposit_prep`` (atoms -> rows,
+The Python side plans the forward kernel's launch and the backward's warps
+per atom (``bwd_warps_per_atom``).  Molecules of one chunk (ligand
+batches) take the brick launch (``brick``: dt depth planes x ht whole h
+rows a block, chosen per grid); molecules of more than one chunk
+(proteins, complexes) the tile launch (``tile_brick``: blocks of warp
+sub-bricks, culled in 3-D), at the exact cutoff and on threshold rows
+alike.  Threshold rows (gaussian_notrunc, ``notrunc=True``) take their own
+backward: the atom walk in groups of ``BWD_NOTRUNC_GROUP`` columns.  ``deposit_prep`` (atoms -> rows,
 weights, ranges, permutation), ``deposit_fwd`` (rows, weights -> grid) and
 ``deposit_bwd`` (cotangent grid -> gradients of rows and weights) launch
 their kernels on CUDA tensors and run ``prepare_plain`` / ``deposit_plain``
@@ -41,6 +44,7 @@ and no autograd Function.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -67,13 +71,17 @@ PREP_ITEMS = 8  # sort words a thread holds in the radix sort of larger shares (
 PREP_SORT_THREADS = 256  # threads of a sorting block, at least (kSortThreads)
 PREP_MAX_CLUSTER = 16  # blocks of the largest sorting cluster (kMaxCluster); 8 is portable
 PREP_MIN_SHARE = 64  # a sorting molecule splits no further than this many padded atoms a block
-PREP_PAIR_THREADS = 16  # threads a block takes for each (row tile, chunk) pair of its plane ranges
+PREP_PAIR_THREADS = 4  # threads a block takes for each (row tile, chunk) pair of its plane ranges: 8 pairs a warp
 PREP_STAGE = 2048  # output atoms a preparation block keeps in shared memory at once (kStage)
 PREP_TARGET_BLOCKS = 132  # a small batch splits its molecules' chunks until a launch has this many blocks
-NOTRUNC_SIDE = 4  # planes and rows of a threshold-row warp's sub-brick (kNtSide in deposit_fwd.cu)
-NOTRUNC_WARP_CAP = 32  # atoms a threshold-row warp deposits per fill of its tables (kNtWarpCap)
-NOTRUNC_BLOCK_WARPS = ((2, 2, 1), (1, 1, 2), (1, 1, 1))  # threshold-row blocks (warps along d, h, w), largest first
-NOTRUNC_TARGET_BLOCKS = 96  # a threshold-row launch takes the largest block that gives this many blocks
+TILE_SIDE = 4  # planes and rows of a tile warp's sub-brick (kTileSide in deposit_fwd.cu)
+TILE_WARP_CAP = 32  # atoms a tile warp deposits per fill of its tables (kTileWarpCap)
+TILE_RANGE_ROWS = 8  # h rows of a plane-range row on the tile launch: a block's rows, two sub-bricks
+TILE_SM_WARPS = 24  # narrow tile warps one SM holds at once (the launch bounds' registers: 6 blocks of 4 warps)
+TILE_WIDE_WAVES = 8  # waves of narrow warps (TILE_SM_WARPS on every SM of the card) a launch needs to widen its lanes
+H100_SMS = 132  # the SMs that plans made with no card present count on (an H100 SXM)
+NOTRUNC_BLOCK_WARPS = ((2, 2, 1), (1, 1, 2), (1, 1, 1))  # threshold-row tile blocks, largest first
+NOTRUNC_TARGET_BLOCKS = 96  # a threshold-row tile launch takes the largest block that gives this many blocks
 BWD_NOTRUNC_GROUP = 4  # consecutive w a threshold-row backward lane takes (kGroup in deposit_bwd.cu)
 _PLAIN_BUDGET = 1 << 26  # elements of deposit_plain's (planes, H*W, chunk) temporary
 
@@ -89,7 +97,7 @@ _F32_ZERO_LOG = 103.972  # -ln(2^-150): exp(-x) rounds to f32 +0.0 for x above t
 # Launches of each kernel, counted by its wrapper where it launches
 # (``launches`` is the tracer's, utils/timing.py; counted whether or not a
 # profiler records).
-launches.update(dict.fromkeys(("deposit_prep", "deposit_fwd", "deposit_bwd", "deposit_fwd_notrunc",
+launches.update(dict.fromkeys(("deposit_prep", "deposit_fwd", "deposit_bwd", "deposit_fwd_tile",
                                "deposit_bwd_notrunc"), 0))
 
 
@@ -208,7 +216,7 @@ def brick_rows(b: int, c: int, dl: int, dim: int) -> tuple[int, int]:
     over its atom chunks (what sets a protein's time); a brick of a few
     runs leaves its warp idle.  Depends on the shapes only, so the plane
     ranges (``plane_ranges`` at ``ht``) are the same whatever the output
-    dtype.  The threshold-row kernel reads these ranges too."""
+    dtype."""
     cap = None
     for run in (STORE_BYTES // 4, STORE_BYTES // 2, STORE_BYTES):
         nrun = -(-dim // run)
@@ -250,19 +258,30 @@ def brick(b: int, c: int, dl: int, dim: int, out_dtype=torch.float32) -> Brick:
     return Brick(dt, ht, kct, run, threads, passes)
 
 
-def notrunc_tiles(vp: int) -> bool:
-    """Whether threshold rows of molecules of ``vp`` padded atoms take the
-    threshold-row launch: molecules of more than one chunk (proteins,
+def fwd_tiles(vp: int) -> bool:
+    """Whether a forward of molecules of ``vp`` padded atoms takes the tile
+    launch (``tile_brick``): molecules of more than one chunk (proteins,
     complexes).  A single chunk (ligand batches) keeps the brick launch,
     whose slab test already sees only that chunk."""
     return vp > CHUNK
 
 
-class NotruncBrick(NamedTuple):
-    """A threshold-row forward launch: blocks of bd x bh x bw warps, each
-    warp a sub-brick of ``NOTRUNC_SIDE`` planes x ``NOTRUNC_SIDE`` rows x
-    ``cols`` columns (each lane 4 x 4 x 2 lanes: a row's ``cols`` / 2
-    consecutive w), kct channels."""
+def range_rows(b: int, c: int, dl: int, dim: int, vp: int) -> int:
+    """h rows of a plane-range row for the forward launch of these shapes:
+    the brick's ``ht`` on the brick launch; on the tile launch
+    ``TILE_RANGE_ROWS``, the rows of a tile (every tile block's rows lie in
+    one range row), so a tile walks only the chunks that reach its own
+    rows.  The preparation writes the ranges at these rows, and the forward
+    and ``deposit_plain`` read them there.  Depends on the shapes only, so
+    the ranges are the same whatever the output dtype and reach."""
+    return min(TILE_RANGE_ROWS, dim) if fwd_tiles(vp) else brick_rows(b, c, dl, dim)[1]
+
+
+class TileBrick(NamedTuple):
+    """A tile forward launch: blocks of bd x bh x bw warps, each warp a
+    sub-brick of ``TILE_SIDE`` planes x ``TILE_SIDE`` rows x ``cols``
+    columns (lanes 4 x 4 x 2: each a row's ``cols`` / 2 consecutive w),
+    kct channels."""
 
     bd: int
     bh: int
@@ -272,37 +291,68 @@ class NotruncBrick(NamedTuple):
     threads: int
 
 
-def notrunc_brick(b: int, c: int, dl: int, dim: int, out_dtype=torch.float32) -> NotruncBrick:
-    """The threshold-row forward launch for these shapes: the first block of
-    ``NOTRUNC_BLOCK_WARPS`` (4, 2 or 1 warps) that gives the launch
-    ``NOTRUNC_TARGET_BLOCKS`` blocks, else the last; channel groups of 1, 2
-    or 4 (1 or 2 for fp8), within the accumulators."""
+def tile_brick(b: int, c: int, dl: int, dim: int, out_dtype=torch.float32, notrunc: bool = False) -> TileBrick:
+    """The tile forward launch for these shapes and reach; channel groups
+    of 1, 2 or 4 (1 or 2 for fp8), within the accumulators.
+
+    At the exact reach a tile walks a few chunks and keeps a few atoms, and
+    that walk, not the pairs, sets its time, so tiles are as large as no
+    idle warp allows: two sub-bricks along each axis (8 planes x 8 rows x
+    32 columns, 64 fp8), one along an axis whose count of sub-bricks is odd
+    (48 columns: 3 of 16).  A launch of at least ``TILE_WIDE_WAVES`` waves
+    of such warps (``TILE_SM_WARPS`` on each of the card's SMs,
+    ``card_sms``) spans its two along w with one warp of wide lanes (16
+    consecutive w, 32 fp8), where the channel group fits their accumulators
+    (C <= 2, fp8 C = 1): half the warps walk the same chunks.  A smaller
+    launch keeps them, so that the card has warps enough (128^3 proteins on
+    an H100: wide lanes lose 17% at 2.6 waves, tie at 5.2, gain 10-19% from
+    10.3 on).  Threshold rows, whose pairs and not the walk set the time,
+    keep their measured launch: narrow lanes, and the first block of
+    ``NOTRUNC_BLOCK_WARPS`` that gives the launch ``NOTRUNC_TARGET_BLOCKS``
+    blocks, else the last (on an H100 the exact reach's rule reads up to 8%
+    slower there at 128^3, and 42% at 256^3)."""
     out_dtype = out_torch_dtype(out_dtype)
     lane_w = 16 if out_dtype.itemsize == 1 else 8
     cols = 2 * lane_w
-    cap = ACC_MAX // lane_w
-    kct = 1 if c == 1 else 2 if c == 2 or cap == 2 else 4
+    kct = 1 if c == 1 else 2 if c == 2 or ACC_MAX // lane_w == 2 else 4
     groups = b * -(-c // kct)
-    for bd, bh, bw in NOTRUNC_BLOCK_WARPS:
-        blocks = groups * -(-dl // (NOTRUNC_SIDE * bd)) * -(-dim // (NOTRUNC_SIDE * bh)) * -(-dim // (cols * bw))
-        if blocks >= NOTRUNC_TARGET_BLOCKS:
-            break
-    return NotruncBrick(bd, bh, bw, kct, cols, 32 * bd * bh * bw)
+    if notrunc:
+        for bd, bh, bw in NOTRUNC_BLOCK_WARPS:
+            blocks = groups * -(-dl // (TILE_SIDE * bd)) * -(-dim // (TILE_SIDE * bh)) * -(-dim // (cols * bw))
+            if blocks >= NOTRUNC_TARGET_BLOCKS:
+                break
+        return TileBrick(bd, bh, bw, kct, cols, 32 * bd * bh * bw)
+    bd, bh, bw = (2 if -(-n // side) % 2 == 0 else 1 for n, side in ((dl, TILE_SIDE), (dim, TILE_SIDE), (dim, cols)))
+    warps = groups * -(-dl // TILE_SIDE) * -(-dim // TILE_SIDE) * -(-dim // cols)
+    if bw == 2 and c <= ACC_MAX // (2 * lane_w) and warps >= TILE_WIDE_WAVES * TILE_SM_WARPS * card_sms():
+        cols, bw = 2 * cols, 1
+    return TileBrick(bd, bh, bw, kct, cols, 32 * bd * bh * bw)
 
 
-def notrunc_smem(p: NotruncBrick) -> int:
-    """Dynamic shared memory of a threshold-row block (deposit_fwd.cu's
-    notrunc_smem_bytes): each warp's list of ``NOTRUNC_WARP_CAP`` atoms
-    (x, y, z, r2; tables; coef; weights), and the block's kept list of a
-    chunk a warp."""
+def card_sms() -> int:
+    """The SMs of the current CUDA card, or ``H100_SMS`` with no card (on
+    the CPU, where only the plain versions run)."""
+    return _sms(torch.cuda.current_device()) if torch.cuda.is_available() else H100_SMS
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_smem(p: TileBrick) -> int:
+    """Dynamic shared memory of a tile block (deposit_fwd.cu's
+    tile_smem_bytes): each warp's list of ``TILE_WARP_CAP`` atoms (x, y,
+    z, r2; tables; coef; weights), and the block's kept list of a chunk a
+    warp."""
     warps = p.threads // 32
-    per = 2 * NOTRUNC_SIDE + p.cols
-    return 4 * (warps * NOTRUNC_WARP_CAP * (4 + per + 1 + p.kct) + (5 + p.kct) * warps * CHUNK)
+    per = 2 * TILE_SIDE + p.cols
+    return 4 * (warps * TILE_WARP_CAP * (4 + per + 1 + p.kct) + (5 + p.kct) * warps * CHUNK)
 
 
 def plane_ranges(coords_shifted: torch.Tensor, r2: torch.Tensor, spec: GridSpec, dl: int, ht: int) -> torch.Tensor:
     """(B, nht, nvc, 2) int32 [d_lo, d_hi) depth planes each (row tile, atom
-    chunk) pair can reach, in closed form, at the kernel's bricks.
+    chunk) pair can reach, in closed form, for row tiles of ``ht`` rows.
 
     Tile ``t`` covers h rows [t*ht, (t+1)*ht) and every column.  An atom's
     minimum squared yz distance to the tile is its distance to that box (a
@@ -349,7 +399,8 @@ def prepare_deposit(coords, weights, radii, mask, spec: GridSpec, gaussian: bool
                     d_offset=0, d_count: int | None = None, notrunc: bool = False):
     """Kernel inputs from padded (B, Vp, 3) / (B, Vp, C) / (B, Vp) arrays with
     Vp a multiple of CHUNK: atom rows (B, 8, Vp), weights (B, C, Vp),
-    ranges (B, nht, nvc, 2) at the bricks' ht rows, and the local depth Dl.
+    ranges (B, nht, nvc, 2) at the forward's ``range_rows``, and the local
+    depth Dl.
     Torch ops only, so autograd carries gradients of the rows and weights
     back to the inputs; masked atoms get zero weight here, hence zero
     gradients."""
@@ -368,7 +419,7 @@ def prepare_deposit(coords, weights, radii, mask, spec: GridSpec, gaussian: bool
     zero = torch.zeros_like(r2)
     coef = (-(0.5 / (sigma * sigma))) / r2 if gaussian else zero
     rows = torch.stack([xs, coords[..., 1], coords[..., 2], r2_th, coef, zero, zero, zero], dim=1).contiguous()
-    ht = brick_rows(rows.shape[0], wt.shape[1], dl, dim)[1]
+    ht = range_rows(rows.shape[0], wt.shape[1], dl, dim, rows.shape[2])
     ranges = plane_ranges(rows[:, :3].detach().transpose(1, 2), r2_th.detach(), spec, dl, ht)
     return rows, wt.contiguous(), ranges, dl
 
@@ -441,7 +492,7 @@ class PrepPlan(NamedTuple):
 
 class Prepared(NamedTuple):
     """A preparation's outputs: atom rows (B, 8, Vo), masked weights (B, C,
-    Vo), plane ranges (B, nht, Vo / 64, 2) int32 at the bricks' ht, the
+    Vo), plane ranges (B, nht, Vo / 64, 2) int32 at ``range_rows``, the
     permutation (B, Vp) int32 (sorted atom i is padded input atom perm[i])
     and the local depth Dl.  Vo is Vp, or C * Vp for channel-wise radii."""
 
@@ -492,9 +543,10 @@ def deposit_plain(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tenso
                   gaussian: bool, out_dtype=torch.float32) -> torch.Tensor:
     """The kernel's function in torch tensor ops -> (B, C, Dl, H*W).
 
-    Same inputs as the kernel; the plane ranges are applied (a voxel of row
-    tile t gets chunk vc only on planes [d_lo, d_hi)), so a range that drops
-    a reachable plane shows up here too.  Accumulates in f32, casts once."""
+    Same inputs as the kernel, ranges at ``range_rows``; the plane ranges
+    are applied (a voxel of row tile t gets chunk vc only on planes [d_lo,
+    d_hi)), so a range that drops a reachable plane shows up here too.
+    Accumulates in f32, casts once."""
     b, _, vp = rows.shape
     c = weights.shape[1]
     dim = spec.dimension
@@ -502,7 +554,7 @@ def deposit_plain(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tenso
     dev = rows.device
     nvc = ranges.shape[2]
     chunk = vp // nvc
-    ht = brick_rows(b, c, dl, dim)[1]
+    ht = range_rows(b, c, dl, dim, vp)
     if ranges.shape[1] != -(-dim // ht):
         raise ValueError(f"ranges must have one row per tile of {ht} h rows, got {tuple(ranges.shape)}")
     res = torch.tensor(spec.resolution, dtype=torch.float32, device=dev)
@@ -653,18 +705,18 @@ def _kernel_lib(name: str):
             for fn in consts:
                 fn.argtypes = []
                 fn.restype = ctypes.c_int
-            lib.deposit_fwd_notrunc.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-                [ctypes.c_float] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            lib.deposit_fwd_notrunc.restype = ctypes.c_int
-            lib.deposit_fwd_notrunc_blocks.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_longlong),
-                                                                              ctypes.POINTER(ctypes.c_int)]
-            lib.deposit_fwd_notrunc_blocks.restype = ctypes.c_int
-            consts += (lib.deposit_fwd_notrunc_side, lib.deposit_fwd_notrunc_warp_cap)
+            lib.deposit_fwd_tile.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+                [ctypes.c_float] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            lib.deposit_fwd_tile.restype = ctypes.c_int
+            lib.deposit_fwd_tile_blocks.argtypes = [ctypes.c_int] * 13 + [ctypes.POINTER(ctypes.c_longlong),
+                                                                           ctypes.POINTER(ctypes.c_int)]
+            lib.deposit_fwd_tile_blocks.restype = ctypes.c_int
+            consts += (lib.deposit_fwd_tile_side, lib.deposit_fwd_tile_warp_cap)
             for fn in consts:
                 fn.argtypes = []
                 fn.restype = ctypes.c_int
-            if tuple(fn() for fn in consts) != (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES, NOTRUNC_SIDE,
-                                                NOTRUNC_WARP_CAP):
+            if tuple(fn() for fn in consts) != (CHUNK, BRICK_THREADS, ACC_MAX, STORE_BYTES, TILE_SIDE,
+                                                TILE_WARP_CAP):
                 raise RuntimeError("deposit_fwd.cu bricks disagree with molvoxel_torch/ops/deposit.py")
         elif name == "deposit_prep":
             lib.deposit_prep.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 20 + [ctypes.c_float] * 9 + \
@@ -718,10 +770,10 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
                 gaussian: bool, out_dtype=torch.float32, notrunc: bool = False) -> torch.Tensor:
     """Deposit prepared atoms -> (B, C, Dl, H*W) of ``out_dtype``.
 
-    CUDA tensors launch ``csrc/deposit_fwd.cu``: the brick kernel, or with
-    ``notrunc`` (threshold rows, gaussian only) and molecules of more than
-    one chunk the threshold-row kernel (``notrunc_brick``), which reads the
-    same ranges.  CPU tensors run ``deposit_plain`` (the same function).
+    CUDA tensors launch ``csrc/deposit_fwd.cu`` (``fwd_launch``): the
+    brick kernel for molecules of one chunk, the tile kernel for larger
+    ones; ``notrunc``: threshold rows (gaussian only).  The ranges are at
+    ``range_rows``.  CPU tensors run ``deposit_plain`` (the same function).
     Raises on anything the kernel does not take."""
     out_dtype = out_torch_dtype(out_dtype)
     if notrunc and not gaussian:
@@ -733,7 +785,7 @@ def deposit_fwd(rows: torch.Tensor, weights: torch.Tensor, ranges: torch.Tensor,
     b, _, vp = rows.shape
     c = weights.shape[1]
     dim = spec.dimension
-    nht = -(-dim // brick_rows(b, c, dl, dim)[1])
+    nht = -(-dim // range_rows(b, c, dl, dim, vp))
     if tuple(ranges.shape) != (b, nht, vp // CHUNK, 2):
         raise ValueError(f"ranges must be {(b, nht, vp // CHUNK, 2)}, got {tuple(ranges.shape)}")
     if ranges.dtype != torch.int32 or not ranges.is_contiguous() or ranges.device != rows.device:
@@ -753,50 +805,62 @@ def _launch_fwd(index: int, fwd: tuple, out: torch.Tensor, rows: int, weights: i
     if rc != 0:
         raise RuntimeError(f"deposit_fwd kernel launch failed with cudaError {rc}")
     launches[entry] += 1
+    if entry == "deposit_fwd_tile" and recording():
+        count("molvoxel.fwd_tile_launches")
     return _count_grid(out)
 
 
 def fwd_launch(b: int, vp: int, c: int, dl: int, spec: GridSpec, gaussian: bool, out_dtype=torch.float32,
                notrunc: bool = False) -> tuple[str, tuple]:
     """The forward wrapper's launch: the C entry point of deposit_fwd.cu
-    and its arguments between the four tensors and the stream; the brick
-    kernel's (``brick``) or, with ``notrunc`` and more than one chunk, the
-    threshold-row kernel's (``notrunc_brick``)."""
-    dim = spec.dimension
-    kind = _OUT_KINDS[out_torch_dtype(out_dtype)]
-    geometry = (b, vp, c, dl, dim, float(spec.resolution), float(spec.width / 2.0))
-    if notrunc and notrunc_tiles(vp):
-        p = notrunc_brick(b, c, dl, dim, out_dtype)
-        hr = brick_rows(b, c, dl, dim)[1]  # the plane ranges' rows
-        return "deposit_fwd_notrunc", geometry + (kind, p.kct, p.bd, p.bh, p.bw, hr)
-    p = brick(b, c, dl, dim, out_dtype)
-    return "deposit_fwd", geometry + (int(gaussian), kind, p.kct, p.threads, p.dt, p.ht, p.passes)
+    and its arguments between the four tensors and the stream; the tile
+    launch (``tile_launch``) for molecules of more than one chunk
+    (``fwd_tiles``), else the brick launch (``brick_launch``)."""
+    if fwd_tiles(vp):
+        return tile_launch(b, vp, c, dl, spec, gaussian, out_dtype, notrunc)
+    return brick_launch(b, vp, c, dl, spec, gaussian, out_dtype)
+
+
+def _fwd_geometry(b, vp, c, dl, spec, gaussian, out_dtype) -> tuple:
+    return (b, vp, c, dl, spec.dimension, float(spec.resolution), float(spec.width / 2.0), int(gaussian),
+            _OUT_KINDS[out_torch_dtype(out_dtype)])
+
+
+def brick_launch(b: int, vp: int, c: int, dl: int, spec: GridSpec, gaussian: bool,
+                 out_dtype=torch.float32) -> tuple[str, tuple]:
+    """The brick kernel's launch (``brick``), its ranges at the brick's
+    ``ht`` rows."""
+    p = brick(b, c, dl, spec.dimension, out_dtype)
+    return "deposit_fwd", _fwd_geometry(b, vp, c, dl, spec, gaussian, out_dtype) + (p.kct, p.threads, p.dt, p.ht,
+                                                                                   p.passes)
+
+
+def tile_launch(b: int, vp: int, c: int, dl: int, spec: GridSpec, gaussian: bool, out_dtype=torch.float32,
+                notrunc: bool = False) -> tuple[str, tuple]:
+    """The tile kernel's launch (``tile_brick``), its ranges at
+    ``range_rows``."""
+    p = tile_brick(b, c, dl, spec.dimension, out_dtype, notrunc)
+    return "deposit_fwd_tile", _fwd_geometry(b, vp, c, dl, spec, gaussian, out_dtype) + (
+        p.kct, p.cols // 2, p.bd, p.bh, p.bw, range_rows(b, c, dl, spec.dimension, vp))
 
 
 def fwd_launch_info(b: int, c: int, vp: int, dl: int, dim: int, gaussian: bool, out_dtype=torch.float32,
                     notrunc: bool = False) -> dict:
-    """The forward launch for these shapes: its plan (``notrunc``: the
-    threshold-row launch's where it takes it), its block count and how many
-    blocks one SM of the current card holds at once (so blocks / (resident
-    per SM x SMs) is the launch's waves).  Needs the card."""
+    """The forward launch for these shapes (``fwd_launch``): its plan (the
+    tile launch's or the brick's), its block count and how many blocks one
+    SM of the current card holds at once (so blocks / (resident per SM x
+    SMs) is the launch's waves).  Needs the card."""
     out_dtype = out_torch_dtype(out_dtype)
+    # the resolution moves no block: the launch's integer arguments alone
+    entry, args = fwd_launch(b, vp, c, dl, GridSpec(1.0, dim), gaussian, out_dtype, notrunc)
+    plan = tile_brick(b, c, dl, dim, out_dtype, notrunc) if fwd_tiles(vp) else brick(b, c, dl, dim, out_dtype)
     blocks, resident = ctypes.c_longlong(0), ctypes.c_int(0)
-    lib = _kernel_lib("deposit_fwd")
-    if notrunc and notrunc_tiles(vp):
-        plan = notrunc_brick(b, c, dl, dim, out_dtype)
-        rc = lib.deposit_fwd_notrunc_blocks(
-            b, vp, c, dl, dim, _OUT_KINDS[out_dtype], plan.kct, plan.bd, plan.bh, plan.bw,
-            brick_rows(b, c, dl, dim)[1], ctypes.byref(blocks), ctypes.byref(resident))
-    else:
-        plan = brick(b, c, dl, dim, out_dtype)
-        rc = lib.deposit_fwd_blocks(
-            b, vp, c, dl, dim, int(gaussian), _OUT_KINDS[out_dtype], plan.kct, plan.threads, plan.dt, plan.ht,
-            plan.passes, ctypes.byref(blocks), ctypes.byref(resident))
+    rc = getattr(_kernel_lib("deposit_fwd"), f"{entry}_blocks")(*args[:5], *args[7:], ctypes.byref(blocks),
+                                                                 ctypes.byref(resident))
     if rc != 0:
         raise RuntimeError(f"deposit_fwd occupancy query failed with cudaError {rc}")
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
     return dict(plan._asdict(), blocks=blocks.value, resident_per_sm=resident.value,
-                waves=blocks.value / max(resident.value * sms, 1))
+                waves=blocks.value / max(resident.value * card_sms(), 1))
 
 
 def bwd_warps_per_atom(b: int, vp: int) -> int:
@@ -1018,7 +1082,7 @@ def prep_args(b: int, v: int, c: int, radii_mode: int, rot: bool, trans: bool, p
     vp = round_up(v, CHUNK)
     vo = c * vp if plan.channelwise else vp
     dl = dim if plan.d_count is None else plan.d_count
-    ht = brick_rows(b, c, dl, dim)[1]
+    ht = range_rows(b, c, dl, dim, vo)
     nht = -(-dim // ht)
     sort = plan.sort and vp > CHUNK
     res = float(spec.resolution)

@@ -75,7 +75,7 @@ def test_plane_ranges_at_the_wrappers_bricks_equal_closed_form(rng, dim, d_offse
     c_t, w_t, r_t, m_t = _t(coords, weights, radii, mask)
     rows, wt, ranges, dl, _ = deposit.prepare_batch(c_t, w_t, r_t, spec=spec, mask=m_t, d_offset=d_offset,
                                                     d_count=d_count, presorted=True)
-    ht = deposit.brick_rows(2, 3, dl, dim)[1]
+    ht = deposit.range_rows(2, 3, dl, dim, rows.shape[2])
     shifted = rows[:, :3].transpose(1, 2).numpy()
     want = np.asarray(_plane_ranges_closed(jnp.asarray(shifted), jnp.asarray(rows[:, 3].numpy()), JSpec(0.5, dim),
                                            dl, -(-dim // ht), ht, deposit.CHUNK))
@@ -143,7 +143,7 @@ def test_ranges_must_be_at_the_bricks_rows(rng):
     coords, weights, radii, mask = _t(*_cloud(rng))
     spec = TSpec(0.5, 12)
     rows, wt, ranges, dl, gaussian = deposit.prepare_batch(coords, weights, radii, spec=spec, mask=mask)
-    ht = deposit.brick_rows(2, 3, dl, 12)[1]
+    ht = deposit.range_rows(2, 3, dl, 12, rows.shape[2])
     other = deposit.plane_ranges(rows[:, :3].transpose(1, 2), rows[:, 3], spec, dl, 12 if ht < 12 else 5)
     with pytest.raises(ValueError, match="one row per tile"):
         deposit.deposit_plain(rows, wt, other, spec=spec, dl=dl, gaussian=gaussian)

@@ -147,8 +147,8 @@ class FakeLib:
         self.calls.append(("deposit_fwd", args))
         return 0
 
-    def deposit_fwd_notrunc(self, *args):
-        self.calls.append(("deposit_fwd_notrunc", args))
+    def deposit_fwd_tile(self, *args):
+        self.calls.append(("deposit_fwd_tile", args))
         return 0
 
 
@@ -194,7 +194,9 @@ def test_plan_built_once_a_shape_and_reused(card):
     counters = timing.snapshot()["counters"]
     assert counters["molvoxel.plan_builds"] == 2 and counters["molvoxel.plan_launches"] == 5
     assert len(deposit._PLANS) == 2
-    assert [name for name, _ in card.calls] == ["deposit_prep", "deposit_fwd"] * 5
+    # the complexes (52 chunks) take the tile launch, the ligands (one chunk) the brick
+    assert [name for name, _ in card.calls] == ["deposit_prep", "deposit_fwd_tile"] * 3 + \
+        ["deposit_prep", "deposit_fwd", "deposit_prep", "deposit_fwd_tile"]
     assert grids[0].shape == (16, 1, 48, 48, 48) and grids[0].dtype == torch.float32
     assert grids[3].shape == (64, 4, 48, 48, 48) and grids[3].dtype == torch.bfloat16
     with cpu_profile():
@@ -240,7 +242,8 @@ def test_plan_launches_take_the_wrappers_arguments(card, b, v, c, channelwise, d
                         out_dtype=deposit.out_torch_dtype(out_dtype), notrunc=notrunc)
     name, args = card.calls[-1]
     assert name == entry and args[4:] == plan_fwd[4:]
-    assert entry == ("deposit_fwd_notrunc" if notrunc else "deposit_fwd")
+    assert entry == ("deposit_fwd_tile" if deposit.fwd_tiles(got.rows.shape[2]) else "deposit_fwd")
+    assert entry == ("deposit_fwd" if (v, channelwise) == (61, False) else "deposit_fwd_tile")
     assert deposit.launches == dict(before, deposit_prep=before["deposit_prep"] + 2, **{entry: before[entry] + 2})
     assert out.shape == (b, c, 48, 48, 48) and out.dtype == deposit.out_torch_dtype(out_dtype)
 
@@ -250,8 +253,8 @@ def test_prepare_batch_cuts_one_allocation_four_ways(card):
     rows, wt, ranges, dl, gaussian = deposit.prepare_batch(coords, weights, radii, spec=SPEC, mask=mask)
     plan = next(iter(deposit._PLANS.values()))
     assert plan.fwd is None  # a preparation alone
-    ht = deposit.brick_rows(3, 2, 48, 48)[1]
-    assert rows.shape == (3, 8, 256) and wt.shape == (3, 2, 256) and ranges.shape == (3, -(-48 // ht), 4, 2)
+    ht = deposit.range_rows(3, 2, 48, 48, 256)
+    assert ht == deposit.TILE_RANGE_ROWS and rows.shape == (3, 8, 256) and wt.shape == (3, 2, 256) and ranges.shape == (3, -(-48 // ht), 4, 2)
     assert rows.dtype == wt.dtype == torch.float32 and ranges.dtype == torch.int32 and dl == 48 and gaussian
     assert all(t.is_contiguous() for t in (rows, wt, ranges))
     firsts = [start for _, _, start in plan.parts]
@@ -264,15 +267,19 @@ def test_a_launch_constant_set_by_a_tool_makes_a_new_plan(card, monkeypatch):
     """A plan keeps the launch it was built with; a tool that sets a
     constant clears the plans, and the next call builds one of the new
     value."""
-    _run(16, 3323, 1)
-    monkeypatch.setattr(deposit, "TARGET_BLOCKS", deposit.TARGET_BLOCKS * 4)
-    _run(16, 3323, 1)
-    assert len(deposit._PLANS) == 1
-    deposit._PLANS.clear()
-    _run(16, 3323, 1)
-    assert len(deposit._PLANS) == 1
-    first, kept, second = (args for name, args in card.calls if name == "deposit_fwd")
-    assert kept[4:] == first[4:] and second[4:] != first[4:]  # the bricks follow the constant
+    for v, constant, entry, density in ((61, "TARGET_BLOCKS", "deposit_fwd", "gaussian"),
+                                        (3323, "NOTRUNC_TARGET_BLOCKS", "deposit_fwd_tile", "gaussian_notrunc")):
+        deposit._PLANS.clear()
+        card.calls.clear()
+        _run(16, v, 1, density_type=density)
+        monkeypatch.setattr(deposit, constant, getattr(deposit, constant) * 4096)
+        _run(16, v, 1, density_type=density)
+        assert len(deposit._PLANS) == 1
+        deposit._PLANS.clear()
+        _run(16, v, 1, density_type=density)
+        assert len(deposit._PLANS) == 1
+        first, kept, second = (args for name, args in card.calls if name == entry)
+        assert kept[4:] == first[4:] and second[4:] != first[4:]  # the blocks follow the constant
 
 
 def test_inputs_that_need_a_gradient_take_the_autograd_functions(card, monkeypatch):

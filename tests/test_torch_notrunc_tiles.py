@@ -1,14 +1,16 @@
-"""The threshold-row (gaussian_notrunc) launches of molvoxel_torch.ops.deposit.
+"""The tile launches of molvoxel_torch.ops.deposit, and the threshold-row
+(gaussian_notrunc) backward.
 
-Threshold rows take their own forward kernel (warp sub-bricks,
-``notrunc_brick``) for molecules of more than one chunk, and their own
-backward (the atom walk in aligned groups of ``BWD_NOTRUNC_GROUP`` columns).
-Here, on the CPU: the forward's sub-bricks cover every voxel once within the
-kernel's budgets; the backward's groups hold every voxel inside the
-threshold; the exact-cutoff launches keep their earlier arguments; every
-entry point passes ``notrunc`` to the wrappers; the plain forward and
-backward on threshold rows agree with the JAX package (Pallas in interpret
-mode), and the plain backward with a brute-force sum."""
+Molecules of more than one chunk take the tile forward kernel (warp
+sub-bricks, ``tile_brick``), at the exact cutoff and on threshold rows;
+threshold rows take their own backward (the atom walk in aligned groups of
+``BWD_NOTRUNC_GROUP`` columns).  Here, on the CPU: the forward's sub-bricks
+cover every voxel once within the kernel's budgets; the backward's groups
+hold every voxel inside the threshold; one-chunk launches keep their
+earlier arguments; every entry point passes ``notrunc`` to the wrappers;
+the plain forward and backward on threshold rows agree with the JAX package
+(Pallas in interpret mode), and the plain backward with a brute-force
+sum."""
 
 from pathlib import Path
 
@@ -40,25 +42,27 @@ TILE_BATCHES = [(1, 1), (1, 4), (3, 4), (2, 8), (64, 4), (1, 12)]
 @pytest.mark.parametrize("out_dtype", DTYPES, ids=["f32", "bf16", "fp8"])
 @pytest.mark.parametrize("dim,slab", TILE_GRIDS, ids=[f"dim{d}-{'slab' if s else 'full'}" for d, s in TILE_GRIDS])
 def test_notrunc_tiles_cover_every_voxel_once(dim, slab, out_dtype):
-    """The threshold-row launch, walked with the kernel's index arithmetic
-    (work item -> tile, warp -> sub-brick, lane -> plane, row and run of w),
-    writes every (channel, plane, row, column) exactly once, within the
-    accumulators and the shared memory the kernel has, and each tile reads
-    plane-range rows that exist."""
+    """The tile launch at both reaches, walked with the kernel's index
+    arithmetic (work item -> tile, warp -> sub-brick, lane -> plane, row and
+    run of w), writes every (channel, plane, row, column) exactly once,
+    within the accumulators and the shared memory the kernel has, and each
+    tile reads one plane-range row, which exists."""
     dl = dim if slab is None else slab[1]
-    side = deposit.NOTRUNC_SIDE
-    for b, c in TILE_BATCHES:
-        p = deposit.notrunc_brick(b, c, dl, dim, out_dtype)
+    side = deposit.TILE_SIDE
+    for (b, c), notrunc in ((bc, nt) for bc in TILE_BATCHES for nt in (True, False)):
+        p = deposit.tile_brick(b, c, dl, dim, out_dtype, notrunc)
         lane_w = p.cols // 2
-        assert lane_w * p.kct <= deposit.ACC_MAX and (p.bd, p.bh, p.bw) in deposit.NOTRUNC_BLOCK_WARPS
+        assert lane_w * p.kct <= deposit.ACC_MAX
+        assert (p.bd, p.bh, p.bw) in deposit.NOTRUNC_BLOCK_WARPS if notrunc else {p.bd, p.bh, p.bw} <= {1, 2}
         assert p.threads == 32 * p.bd * p.bh * p.bw <= deposit.BRICK_THREADS
-        assert deposit.notrunc_smem(p) <= SMEM_MAX
+        assert deposit.tile_smem(p) <= SMEM_MAX
         nct = -(-c // p.kct)
         assert sorted(cg * p.kct + k for cg in range(nct) for k in range(p.kct) if cg * p.kct + k < c) == list(range(c))
         ndt, nht, nwt = -(-dl // (side * p.bd)), -(-dim // (side * p.bh)), -(-dim // (p.cols * p.bw))
-        hr = deposit.brick_rows(b, c, dl, dim)[1]  # the plane ranges' rows, which the tiles read
-        h_last = np.minimum(np.arange(nht) * side * p.bh + side * p.bh, dim) - 1
-        assert (h_last // hr).max() < -(-dim // hr)
+        hr = deposit.range_rows(b, c, dl, dim, 2 * deposit.CHUNK)  # the plane ranges' rows, which the tiles read
+        h_first = np.arange(nht) * side * p.bh
+        h_last = np.minimum(h_first + side * p.bh, dim) - 1
+        assert (h_last // hr).max() < -(-dim // hr) and (h_first // hr == h_last // hr).all()
         item = np.arange(ndt * nht * nwt)  # one molecule and channel group; the others are disjoint copies
         wi, ti, di = item % nwt, (item // nwt) % nht, item // (nwt * nht)
         warp = np.arange(p.threads // 32)
@@ -75,13 +79,17 @@ def test_notrunc_tiles_cover_every_voxel_once(dim, slab, out_dtype):
 
 
 def test_notrunc_tiles_fill_the_card():
-    """The proteins and the complex take the largest block that still gives
-    NOTRUNC_TARGET_BLOCKS blocks (or one warp a block); molecules of one
-    chunk keep the brick."""
-    side = deposit.NOTRUNC_SIDE
-    for b, c, dim in ((1, 1, 48), (1, 1, 128), (1, 1, 256), (1, 8, 48), (4, 4, 48)):
+    """Threshold rows take the largest block of their list that still gives
+    NOTRUNC_TARGET_BLOCKS blocks (or one warp a block); the exact reach two
+    sub-bricks along each axis that holds an even number of them, else one
+    (no warp without voxels), the two along w one warp of wide lanes in a
+    launch of at least TILE_WIDE_WAVES waves of narrow warps (TILE_SM_WARPS
+    on each of the card's SMs) whose channel group fits them; molecules of
+    one chunk keep the brick."""
+    side = deposit.TILE_SIDE
+    for b, c, dim in ((1, 1, 48), (1, 1, 128), (1, 1, 256), (1, 8, 48), (4, 4, 48), (16, 1, 48), (16, 1, 128)):
         for out_dtype in DTYPES:
-            p = deposit.notrunc_brick(b, c, dim, dim, out_dtype)
+            p = deposit.tile_brick(b, c, dim, dim, out_dtype, notrunc=True)
 
             def blocks(bd, bh, bw):
                 return b * -(-c // p.kct) * -(-dim // (side * bd)) * -(-dim // (side * bh)) * -(-dim // (p.cols * bw))
@@ -89,7 +97,34 @@ def test_notrunc_tiles_fill_the_card():
             assert blocks(p.bd, p.bh, p.bw) >= deposit.NOTRUNC_TARGET_BLOCKS or p.threads == 32
             larger = deposit.NOTRUNC_BLOCK_WARPS[:deposit.NOTRUNC_BLOCK_WARPS.index((p.bd, p.bh, p.bw))]
             assert all(blocks(*w) < deposit.NOTRUNC_TARGET_BLOCKS for w in larger)
-    assert deposit.notrunc_tiles(3264) and deposit.notrunc_tiles(128) and not deposit.notrunc_tiles(64)
+            narrow = 16 if out_dtype.itemsize == 1 else 8
+            for dl in (dim, 27, 8):
+                e = deposit.tile_brick(b, c, dl, dim, out_dtype)
+                even = [-(-n // side_n) % 2 == 0 for n, side_n in ((dl, side), (dim, side), (dim, 2 * narrow))]
+                assert (e.bd, e.bh) == tuple(2 if x else 1 for x in even[:2])
+                warps = b * -(-c // e.kct) * -(-dl // side) * -(-dim // side) * -(-dim // (2 * narrow))
+                wave = deposit.TILE_SM_WARPS * deposit.card_sms()
+                wide = even[2] and c * 2 * narrow <= deposit.ACC_MAX and warps >= deposit.TILE_WIDE_WAVES * wave
+                assert (e.cols, e.bw) == ((4 * narrow, 1) if wide else (2 * narrow, 2 if even[2] else 1))
+    # the protein cell: 8 x 8 x 32 voxels a block, one wide warp along w; the complex cell: 48 columns, 3 sub-bricks
+    assert deposit.tile_brick(16, 1, 128, 128)[:5] == (2, 2, 1, 1, 32)
+    assert deposit.tile_brick(16, 1, 48, 48)[:5] == (2, 2, 1, 1, 16)
+    assert deposit.tile_brick(1, 1, 128, 128)[:5] == (2, 2, 2, 1, 16)  # one protein: too few warps to widen
+    assert deposit.fwd_tiles(3264) and deposit.fwd_tiles(128) and not deposit.fwd_tiles(64)
+
+
+def test_wide_lanes_follow_the_cards_sms(monkeypatch):
+    """The wide-lane threshold is counted in waves of the card the plan is
+    made for: 128^3 proteins widen from 4 a launch (10.3 waves of an H100's
+    132 SMs) and keep narrow lanes at 2 (5.2 waves); on a card of half the
+    SMs, 2 proteins are 10.3 waves and widen too."""
+    assert deposit.card_sms() == (torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+                                  if torch.cuda.is_available() else deposit.H100_SMS)
+    monkeypatch.setattr(deposit, "card_sms", lambda: 132)
+    assert [deposit.tile_brick(b, 1, 128, 128).cols for b in (1, 2, 4, 8)] == [16, 16, 32, 32]
+    monkeypatch.setattr(deposit, "card_sms", lambda: 66)
+    assert [deposit.tile_brick(b, 1, 128, 128).cols for b in (1, 2, 4, 8)] == [16, 32, 32, 32]
+    assert deposit.tile_brick(2, 1, 128, 128, notrunc=True).cols == 16  # threshold rows keep narrow lanes
 
 
 @pytest.mark.parametrize("ct_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -163,18 +198,22 @@ MAIN_SHAPES = [(64, 4, 64, 64), (1, 1, 48, 48), (1, 1, 128, 128), (4, 4, 64, 256
 
 @pytest.mark.parametrize("out_dtype", DTYPES, ids=["f32", "bf16", "fp8"])
 def test_exact_cutoff_launches_unchanged(out_dtype):
-    """With notrunc=False the forward's brick, its rows (the plane ranges'),
-    its entry point and every launch argument, and the backward's, are what
-    they were: the same instantiations on the same arguments."""
+    """Molecules of one chunk keep the forward's brick, its rows (the plane
+    ranges'), its entry point and every launch argument; larger ones take
+    the tile launch; the backward's launch is what it was: the same
+    instantiations on the same arguments."""
     shapes = MAIN_SHAPES + [(b, c, dl, dim) for b in (1, 3, 16, 64) for c in (1, 2, 3, 4, 5, 8, 16)
                             for dim in (12, 16, 20, 24, 32, 33, 48, 64, 96, 128, 256)
                             for dl in sorted({dim, max(1, dim // 4), min(dim, 11)})]
     for b, c, dl, dim in shapes:
         spec = TSpec(0.5, dim)
         assert deposit.brick_rows(b, c, dl, dim) == _parent_brick_rows(b, c, dl, dim)
+        assert deposit.range_rows(b, c, dl, dim, 64) == _parent_brick_rows(b, c, dl, dim)[1]
         for gaussian in (True, False):
+            assert deposit.fwd_launch(b, 64, c, dl, spec, gaussian, out_dtype) == \
+                _parent_fwd_args(b, 64, c, dl, spec, gaussian, out_dtype)
             assert deposit.fwd_launch(b, 128, c, dl, spec, gaussian, out_dtype) == \
-                _parent_fwd_args(b, 128, c, dl, spec, gaussian, out_dtype)
+                deposit.tile_launch(b, 128, c, dl, spec, gaussian, out_dtype)
         for ct_dtype, kind in ((torch.float32, 0), (torch.bfloat16, 1)):
             wpa = 1
             while wpa < 8 and b * 128 * wpa < 16 * 132:
@@ -186,9 +225,10 @@ def test_exact_cutoff_launches_unchanged(out_dtype):
 def test_notrunc_launches_use_the_tiles():
     spec = TSpec(0.5, 128)
     name, args = deposit.fwd_launch(1, 3264, 1, 128, spec, True, torch.float32, notrunc=True)
-    p = deposit.notrunc_brick(1, 1, 128, 128)
-    hr = deposit.brick_rows(1, 1, 128, 128)[1]  # the tiles read the brick rows' plane ranges
-    assert name == "deposit_fwd_notrunc" and args[-6:] == (0, p.kct, p.bd, p.bh, p.bw, hr)
+    p = deposit.tile_brick(1, 1, 128, 128, notrunc=True)
+    hr = deposit.TILE_RANGE_ROWS  # the tiles read plane ranges at their own rows
+    assert name == "deposit_fwd_tile" and args[-8:] == (1, 0, p.kct, 8, p.bd, p.bh, p.bw, hr)
+    assert (p.bd, p.bh, p.bw) == deposit.NOTRUNC_BLOCK_WARPS[0]  # the measured threshold-row block
     # a batch of one-chunk molecules keeps the brick launch, threshold rows or not
     assert deposit.fwd_launch(64, 64, 4, 64, TSpec(0.5, 64), True, torch.bfloat16, notrunc=True) == \
         deposit.fwd_launch(64, 64, 4, 64, TSpec(0.5, 64), True, torch.bfloat16)
@@ -197,6 +237,96 @@ def test_notrunc_launches_use_the_tiles():
     with pytest.raises(ValueError, match="gaussian"):
         deposit.deposit_fwd(torch.zeros(1, 8, 64), torch.zeros(1, 1, 64), torch.zeros(1, 1, 1, 2, dtype=torch.int32),
                             spec=spec, dl=128, gaussian=False, notrunc=True)
+
+
+# ------------------------------------------------------ the tile route
+
+
+@pytest.mark.parametrize("density", ["gaussian", "binary", "gaussian_notrunc"])
+@pytest.mark.parametrize("vp", [64, 128, 3328, 4096])
+def test_forwards_route_on_the_chunk_count(density, vp):
+    """``fwd_launch`` sends molecules of more than one chunk to the tile
+    entry point, at both reaches and both densities, with ranges at
+    ``TILE_RANGE_ROWS``; one chunk keeps the brick's entry point and
+    arguments."""
+    gaussian, notrunc = density != "binary", density == "gaussian_notrunc"
+    for b, c, dim, dl, out_dtype in ((16, 1, 128, 128, torch.float32), (16, 1, 48, 48, torch.float32),
+                                     (64, 4, 64, 64, torch.bfloat16), (1, 3, 33, 27, torch.float8_e4m3fn),
+                                     (2, 8, 20, 20, torch.float32)):
+        spec = TSpec(0.5, dim)
+        name, args = deposit.fwd_launch(b, vp, c, dl, spec, gaussian, out_dtype, notrunc)
+        assert args[:9] == (b, vp, c, dl, dim, 0.5, float(spec.width / 2.0), int(gaussian),
+                            deposit._OUT_KINDS[out_dtype])
+        if vp > deposit.CHUNK:
+            p = deposit.tile_brick(b, c, dl, dim, out_dtype, notrunc)
+            assert name == "deposit_fwd_tile" and args[9:] == (p.kct, p.cols // 2, p.bd, p.bh, p.bw, min(8, dim))
+            assert deposit.range_rows(b, c, dl, dim, vp) == deposit.TILE_RANGE_ROWS == 8
+        else:
+            p = deposit.brick(b, c, dl, dim, out_dtype)
+            assert name == "deposit_fwd" and args[9:] == (p.kct, p.threads, p.dt, p.ht, p.passes)
+            assert deposit.range_rows(b, c, dl, dim, vp) == p.ht
+
+
+def test_range_rows_and_the_forwards_shape_check_agree(monkeypatch):
+    """The preparation writes its ranges at ``range_rows``, and the forward's
+    shape check (on the card) takes exactly that row count: ranges at the
+    brick's rows are refused on the tile route."""
+    import contextlib
+
+    calls = []
+    lib = type("Lib", (), {"deposit_prep_setup": lambda self: 7,
+                           "deposit_prep": lambda self, *a: calls.append("deposit_prep") or 0,
+                           "deposit_fwd": lambda self, *a: calls.append("deposit_fwd") or 0,
+                           "deposit_fwd_tile": lambda self, *a: calls.append("deposit_fwd_tile") or 0})()
+    monkeypatch.setattr(deposit, "_kernel_lib", lambda name: lib)
+    monkeypatch.setattr(deposit, "_WIDE_CLUSTERS", {})
+    monkeypatch.setattr(deposit, "_PLANS", {})
+    monkeypatch.setattr(deposit, "_check_prep_inputs", lambda *a: None)
+    monkeypatch.setattr(deposit, "_check_kernel_inputs", lambda *a: None)
+    monkeypatch.setattr(deposit, "_raw_stream", lambda index: 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    for b, v, c, dim, d_count in ((16, 3323, 1, 48, None), (16, 3262, 1, 128, None), (64, 61, 4, 64, None),
+                                  (2, 300, 3, 33, 27), (1, 100, 8, 20, None), (1, 3262, 1, 4, None)):
+        spec = TSpec(0.5, dim)
+        plan = deposit.PrepPlan(spec, True, 0.5, d_count=d_count)
+        got = deposit.deposit_prep(torch.empty((b, v, 3), device="meta"), torch.empty((b, v, c), device="meta"),
+                                   torch.empty((v,), device="meta"), None, None, deposit.Transforms(None, False, False),
+                                   plan)
+        vp = got.rows.shape[2]
+        hr = deposit.range_rows(b, c, got.dl, dim, vp)
+        assert got.ranges.shape == (b, -(-dim // hr), vp // deposit.CHUNK, 2)
+        deposit.deposit_fwd(got.rows, got.weights, got.ranges, spec=spec, dl=got.dl, gaussian=True)
+        assert calls[-1] == ("deposit_fwd_tile" if vp > deposit.CHUNK else "deposit_fwd")
+        ht = deposit.brick_rows(b, c, got.dl, dim)[1]
+        if -(-dim // ht) != -(-dim // hr):
+            other = torch.empty((b, -(-dim // ht), vp // deposit.CHUNK, 2), dtype=torch.int32, device="meta")
+            with pytest.raises(ValueError, match="ranges must be"):
+                deposit.deposit_fwd(got.rows, got.weights, other, spec=spec, dl=got.dl, gaussian=True)
+
+
+@pytest.mark.parametrize("density", ["gaussian", "binary", "gaussian_notrunc"])
+@pytest.mark.parametrize("dim,slab", [(64, None), (33, (5, 27))])
+def test_plain_grid_is_the_same_at_the_brick_rows(rng, monkeypatch, density, dim, slab):
+    """``deposit_plain`` gives the same grid, bit for bit, from ranges at the
+    tile rows as from ranges at 64 rows (the whole grid at dim 33), since
+    both stay conservative: the range rows decide which chunks a tile walks,
+    never a voxel's sum."""
+    b, v, c = 2, 300, 3
+    coords = torch.as_tensor(rng.uniform(-dim * 0.2, dim * 0.2, (b, v, 3)).astype(np.float32))
+    weights = torch.as_tensor(rng.uniform(0.2, 1.0, (b, v, c)).astype(np.float32))
+    radii = torch.as_tensor(rng.uniform(0.7, 1.6, (b, v)).astype(np.float32))
+    mask = torch.as_tensor(rng.uniform(size=(b, v)) >= 0.1)
+    kw = dict(spec=TSpec(0.5, dim), density_type=density, mask=mask)
+    if slab is not None:
+        kw.update(d_offset=slab[0], d_count=slab[1])
+    got = deposit.voxelize_deposit_batch(coords, weights, radii, **kw)
+    assert deposit.range_rows(b, c, dim, dim, 320) == 8
+    monkeypatch.setattr(deposit, "range_rows", lambda b_, c_, dl_, dim_, vp_: min(64, dim_))
+    rows, _, ranges, _, _ = deposit.prepare_batch(coords, weights, radii, **kw)
+    assert ranges.shape[1] == 1 and rows.shape[2] == 320
+    want = deposit.voxelize_deposit_batch(coords, weights, radii, **kw)
+    assert float(got.abs().max()) > 0 and torch.equal(got, want)
 
 
 # ----------------------------------------------------- the call sites

@@ -78,7 +78,7 @@ def test_prepare_plain_matches_the_jax_batch_path(rng, captured_pallas, density,
     path's order (molvoxel_tpu/ops/batch.py:105-119): center, sort by the
     centered coordinates, transform.  The permutation equals the one
     _sort_atoms_spatially applies and the plane ranges equal
-    _plane_ranges_closed at the bricks' ht (both exactly); the rows equal
+    _plane_ranges_closed at the forward's range rows (both exactly); the rows equal
     _run_v5's at rtol 1e-6 (coef is a reciprocal times a scalar here, a
     quotient there), and the coordinate rows, like the placed coordinates
     against do_transform's, within 1e-6 of the grid width (the JAX package
@@ -115,7 +115,7 @@ def test_prepare_plain_matches_the_jax_batch_path(rng, captured_pallas, density,
                                atol=1e-6 * spec_t.width)
 
     dl = dim if d_count is None else d_count
-    ht = deposit.brick_rows(b, c, dl, dim)[1]
+    ht = deposit.range_rows(b, c, dl, dim, got.rows.shape[2])
     shifted = got.rows[:, :3].transpose(1, 2).numpy()
     want = np.asarray(_plane_ranges_closed(jnp.asarray(shifted), jnp.asarray(got.rows[:, 3].numpy()), spec_j, dl,
                                            -(-dim // ht), ht, deposit.CHUNK))
@@ -515,7 +515,8 @@ def test_prep_wrapper_launches_once_below_the_line_and_twice_above(monkeypatch):
                                    deposit.Transforms(None, False, False), plan)
         vp = -(-v // 64) * 64
         vo = c * vp if channelwise else vp
-        ht = deposit.brick_rows(b, c, 48, 48)[1]
+        ht = deposit.range_rows(b, c, 48, 48, vo)
+        assert ht == (deposit.TILE_RANGE_ROWS if vo > 64 else deposit.brick_rows(b, c, 48, 48)[1])
         assert out.rows.shape == (b, 8, vo) and out.weights.shape == (b, c, vo) and out.perm.shape == (b, vp)
         assert out.ranges.shape == (b, -(-48 // ht), vo // 64, 2) and out.dl == 48
         assert deposit.launches == dict(before, deposit_prep=before["deposit_prep"] + 1)

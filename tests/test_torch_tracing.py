@@ -267,7 +267,7 @@ def test_launches_are_the_tracers_counters():
     """``deposit.launches`` is the tracer's one launch counter, under its old
     names; a profiler session keeps no second count of launches."""
     assert deposit.launches is timing.launches and deposit.reset_launches is timing.reset_launches
-    assert set(deposit.launches) == {"deposit_prep", "deposit_fwd", "deposit_bwd", "deposit_fwd_notrunc",
+    assert set(deposit.launches) == {"deposit_prep", "deposit_fwd", "deposit_bwd", "deposit_fwd_tile",
                                      "deposit_bwd_notrunc"}
     saved = dict(deposit.launches)
     try:

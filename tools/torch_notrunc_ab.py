@@ -29,10 +29,10 @@ exact-cutoff launches at the forward main path's five shapes and the
 backward's training batch, which this code did not change: the same
 launch arguments, so the same bits and times within noise.
 
-``--sweep`` times the new kernels at other plans instead
-(``deposit.NOTRUNC_BLOCK_WARPS``, ``NOTRUNC_TARGET_BLOCKS``; the
-backward's ``BWD_TARGET_WARPS``, which sets its warps an atom), each
-against the plan in the code, in turns.  One JSON line per measurement; the card's
+``--sweep`` times the new kernels at other plans instead (the forward's
+tile blocks and lane widths, ``sweep_fwd``; the backward's
+``BWD_TARGET_WARPS``, which sets its warps an atom), each against the
+plan in the code, in turns.  One JSON line per measurement; the card's
 ``nvidia-smi`` name and power limit first; ``--out`` also writes them to a
 file.  Needs one CUDA card.
 """
@@ -80,7 +80,8 @@ def build_parent(name: str, src: Path) -> ctypes.CDLL:
 
 def parent_fwd(lib, rows, wt, ranges, spec, dl, odt):
     """The parent's forward launch on threshold rows: ``brick``'s plan,
-    ``ranges`` at its rows."""
+    ``ranges`` at its rows (ranges at the tiles' rows are computed anew at
+    the brick's, by ``deposit.plane_ranges``)."""
     import torch
 
     from molvoxel_torch.ops import deposit
@@ -88,6 +89,8 @@ def parent_fwd(lib, rows, wt, ranges, spec, dl, odt):
     b, c, vp = wt.shape
     dim = spec.dimension
     plan = deposit.brick(b, c, dl, dim, odt)
+    if ranges.shape[1] != -(-dim // plan.ht):
+        ranges = deposit.plane_ranges(rows[:, :3].transpose(1, 2), rows[:, 3], spec, dl, plan.ht)
     out = torch.empty((b, c, dl, dim * dim), dtype=odt, device=rows.device)
     rc = lib.deposit_fwd(rows.data_ptr(), wt.data_ptr(), ranges.data_ptr(), out.data_ptr(), b, vp, c, dl, dim,
                          float(spec.resolution), float(spec.width / 2.0), 1, deposit._OUT_KINDS[odt], plan.kct,
@@ -152,29 +155,10 @@ def forward_cases(dev, fwd_lib, bwd_lib, sweep):
             return parent_fwd(fwd_lib, rows, wt, ranges, spec, dl, odt)
 
         if sweep:
-            if not deposit.notrunc_tiles(vp):
-                continue
-            plans = sweep_plans()
-            base = {k: getattr(deposit, k) for k in plans[0]}
-            times = {}
-            for order in ("code", "alt", "alt", "code"):
-                for i, plan in enumerate(plans):
-                    key = "code" if i == 0 else json.dumps(plan)
-                    if (order == "code") != (i == 0):
-                        continue
-                    for k, v in plan.items():
-                        setattr(deposit, k, v)
-                    deposit._PLANS.clear()  # the plans of the old constants
-                    # the ranges at this plan's rows
-                    r_rows, r_wt, r_ranges, r_dl, _ = deposit.prepare_batch(coords, w, radii, **kw)
-                    times.setdefault(key, []).append(time_graph_ms(
-                        lambda: deposit.deposit_fwd(r_rows, r_wt, r_ranges, spec=spec, dl=r_dl, gaussian=True,
-                                                    out_dtype=odt, notrunc=True)))
-                    for k, v in base.items():
-                        setattr(deposit, k, v)
-                    deposit._PLANS.clear()
-            emit({"phase": "sweep_fwd", "case": name,
-                  "ms": {k: statistics.median(v) for k, v in times.items()}})
+            if deposit.fwd_tiles(vp):
+                line = sweep_fwd(name, rows, wt, ranges, spec, dl, odt, dev)
+                emit(line)
+                ok = ok and line["ok"]
             continue
 
         new = new_fwd()
@@ -206,22 +190,31 @@ def forward_cases(dev, fwd_lib, bwd_lib, sweep):
                 "bound_ms": b_ms, "bound_by": b_by, "bit_equal_parent": identical, "route_bit_equal": route_same,
                 "two_launches_equal": same_bits(new, again), "max_abs_diff": err, "tol": tol,
                 "plan": deposit.fwd_launch_info(b, c, vp, dl, dim, True, odt, notrunc=True),
-                "parent_plan": deposit.fwd_launch_info(b, c, vp, dl, dim, True, odt)}
+                "parent_plan": deposit.brick(b, c, dl, dim, odt)._asdict()}
         line["ok"] = bool(err <= tol and line["two_launches_equal"])
-        if not deposit.notrunc_tiles(vp):
-            # a molecule of one chunk keeps the brick launch: the threshold-row
-            # kernel timed on it all the same, for the routing rule
-            saved = deposit.notrunc_tiles
-            deposit.notrunc_tiles = lambda vp_: True
+        if not deposit.fwd_tiles(vp):
+            # a molecule of one chunk keeps the brick launch: the tile kernel
+            # timed on it all the same (on ranges at the tiles' rows), for
+            # the routing rule
+            saved = deposit.fwd_tiles
+            deposit.fwd_tiles = lambda vp_: True
+            deposit._PLANS.clear()
             try:
-                alt = new_fwd()
-                line["threshold_row_kernel_ms"] = time_graph_ms(new_fwd)
+                t_rows, t_wt, t_ranges, t_dl, _ = deposit.prepare_batch(coords, w, radii, **kw)
+
+                def tile_fwd():
+                    return deposit.deposit_fwd(t_rows, t_wt, t_ranges, spec=spec, dl=t_dl, gaussian=True,
+                                               out_dtype=odt, notrunc=True)
+
+                alt = tile_fwd()
+                line["threshold_row_kernel_ms"] = time_graph_ms(tile_fwd)
                 line["threshold_row_kernel_bit_equal_parent"] = same_bits(alt, par)
                 line["threshold_row_plan"] = deposit.fwd_launch_info(b, c, vp, dl, dim, True, odt, notrunc=True)
                 line["ok"] = line["ok"] and line["threshold_row_kernel_bit_equal_parent"]
                 del alt
             finally:
-                deposit.notrunc_tiles = saved
+                deposit.fwd_tiles = saved
+                deposit._PLANS.clear()
         emit(line)
         ok = ok and line["ok"]
         del new, par, again, pr
@@ -229,16 +222,56 @@ def forward_cases(dev, fwd_lib, bwd_lib, sweep):
     return ok
 
 
-def sweep_plans():
-    """The plan in the code first, then the alternatives the sweep times:
-    each block size alone, at the code's target."""
+# the tile blocks the sweep times (warps along d, h and w), each at narrow and wide lanes
+SWEEP_BLOCKS = ((2, 2, 2), (2, 2, 1), (1, 2, 2), (1, 1, 2), (1, 1, 1))
+
+
+def sweep_fwd(name, rows, wt, ranges, spec, dl, odt, dev) -> dict:
+    """The tile launch of threshold rows at the code's plan and at every
+    ``SWEEP_BLOCKS`` block with narrow and wide lanes (where the channel
+    group fits their accumulators), on the same rows and ranges, timed by
+    CUDA-graph replay in turns (each in order, then in reverse); every grid
+    bit for bit with the code's.  ``exact_rule``: the launch the same
+    shapes take at the exact cutoff (``tile_brick`` without ``notrunc``)."""
+    import torch
+
+    from chip_smoke import same_bits, time_graph_ms
     from molvoxel_torch.ops import deposit
 
-    keys = ("NOTRUNC_BLOCK_WARPS", "NOTRUNC_TARGET_BLOCKS")
-    code = {k: getattr(deposit, k) for k in keys}
-    alts = [dict(zip(keys, ((warps,), 0))) for warps in ((2, 2, 2), (1, 2, 2), (1, 1, 2), (1, 1, 1), (2, 2, 1))]
-    alts += [dict(zip(keys, (code["NOTRUNC_BLOCK_WARPS"], target))) for target in (132, 2 * 132, 8 * 132)]
-    return [code] + [p for p in alts if p != code]
+    b, c, vp = wt.shape
+    dim = spec.dimension
+    code = deposit.tile_launch(b, vp, c, dl, spec, True, odt, notrunc=True)
+    entry, args = code
+    narrow = 16 if odt.itemsize == 1 else 8
+    kct = args[-6]
+
+    def key(lw, bd, bh, bw):
+        return f"w{lw}_{bd}{bh}{bw}"
+
+    launches = {"code": code}
+    for lw in (narrow, 2 * narrow):
+        if lw * kct > deposit.ACC_MAX:
+            continue
+        for bd, bh, bw in SWEEP_BLOCKS:
+            alt = (entry, args[:-5] + (lw, bd, bh, bw, args[-1]))
+            if alt != code:
+                launches[key(lw, bd, bh, bw)] = alt
+    outs = {k: torch.empty((b, c, dl, dim * dim), dtype=odt, device=dev) for k in launches}
+    fns = {k: (lambda k=k: deposit._launch_fwd(dev.index or 0, launches[k], outs[k], rows.data_ptr(),
+                                               wt.data_ptr(), ranges.data_ptr())) for k in launches}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    bits = {k: same_bits(outs[k], outs["code"]) for k in outs}
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        times[k].append(time_graph_ms(fns[k]))
+    exact = deposit.tile_brick(b, c, dl, dim, odt)
+    exact_key = key(exact.cols // 2, exact.bd, exact.bh, exact.bw)
+    return {"phase": "sweep_fwd", "case": name, "code": key(*args[-5:-1]),
+            "exact_rule": "code" if exact_key == key(*args[-5:-1]) else exact_key,
+            "ms": {k: statistics.median(t) for k, t in times.items()}, "runs_ms": times,
+            "bit_equal_code": bits, "ok": all(bits.values())}
 
 
 def train_cases(dev, fwd_lib, bwd_lib, sweep):

@@ -15,9 +15,11 @@ sized by the sort) is ``parent_prep`` below.  It is built with nvcc into
 ``build/parent/``.
 
 Both run on the same raw inputs (``chip_smoke.prep_inputs``) at the shapes
-``chip_smoke.py``'s prep_timing times (the headline batch, the protein at
-48^3, 8 complexes at 48^3, 20,000 and 65,536 atoms at 64^3) and at 1, 8 and
-64 proteins and complexes at 48^3.  Each is timed by CUDA-graph replay
+``chip_smoke.py``'s prep_timing times (the headline batch, which is the
+``ligand64.batch64`` cell's shape: 64 molecules of one chunk, 4 channels,
+64^3, placed; the protein at 48^3, 8 complexes at 48^3, 20,000 and 65,536
+atoms at 64^3), at 1, 8 and 64 proteins and complexes at 48^3, and at the
+``protein128.batch16`` cell's shape (16 placed proteins at 128^3).  Each is timed by CUDA-graph replay
 (``chip_smoke.time_graph_ms``) in turns: parent, new, new, parent; the line
 gives both medians, the new launch's plan, the bound (``chip_smoke.prep_bound``)
 and the launch floor.  The two must agree bit for bit (rows, weights,
@@ -25,7 +27,8 @@ ranges, permutation).  Then each shape is timed again at other
 ``deposit.PREP_MIN_SHARE`` (the fewest atoms a block of a sorting cluster
 takes; sorted shapes) and ``deposit.PREP_PAIR_THREADS`` (the threads a
 block takes for each pair of its plane ranges), to show what the cluster
-width and the block size buy.  One JSON line per
+width and the block size buy, each value in turns with the code's
+(code, value, value, code).  One JSON line per
 measurement; the card's ``nvidia-smi`` name and power limit first.  Needs
 one CUDA card.
 """
@@ -47,7 +50,8 @@ PARENT_TARGET_BLOCKS = 132  # the earlier wrapper split a small batch's chunks u
 
 # (label, molecule, batch, channels, dim, options) beyond the PREP_CASES rows
 EXTRA_SHAPES = [(f"prot_b{b}_dim48", "prot", b, 1, 48, {"bucket"}) for b in (1, 8, 64)] + \
-    [(f"complex_b{b}_dim48_c8", "complex", b, 8, 48, {"bucket"}) for b in (1, 8, 64)]
+    [(f"complex_b{b}_dim48_c8", "complex", b, 8, 48, {"bucket"}) for b in (1, 8, 64)] + \
+    [("prot_b16_dim128_placed", "prot", 16, 1, 128, {"bucket", "place"})]
 PREP_ROWS = ("headline_64lig_dim64_c4", "prot_dim48_c1", "complex8_dim48", "prot20000_dim64", "prot65536_dim64")
 
 
@@ -79,7 +83,7 @@ def parent_prep(lib, coords, weights, radii, mask, centers, transforms, plan):
     import torch
 
     from molvoxel_torch.core.config import round_up
-    from molvoxel_torch.ops.deposit import CHUNK, Prepared, brick_rows, notrunc_factor
+    from molvoxel_torch.ops.deposit import CHUNK, Prepared, notrunc_factor, range_rows
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -92,7 +96,7 @@ def parent_prep(lib, coords, weights, radii, mask, centers, transforms, plan):
     vp = round_up(v, CHUNK)
     vo = c * vp if plan.channelwise else vp
     dl = dim if plan.d_count is None else plan.d_count
-    ht = brick_rows(b, c, dl, dim)[1]
+    ht = range_rows(b, c, dl, dim, vo)
     nht = -(-dim // ht)
     sort = plan.sort and vp > CHUNK
     radii_mode = 2 if plan.channelwise else 1 if radii.ndim == 2 else 0
@@ -191,18 +195,24 @@ def main() -> int:
         sweeps += [("PREP_PAIR_THREADS", int(x)) for x in args.pair_threads.split(",") if x]
         for knob, value in sweeps:
             default = getattr(deposit, knob)
-            setattr(deposit, knob, value)
-            deposit._PLANS.clear()  # the plans of the old constant
+            runs = {default: [], value: []}
             try:
-                got = deposit.deposit_prep(*inputs, plan)
-                same = all(same_bits(getattr(got, f), getattr(new, f)) for f in fields)
-                emit({"phase": "sweep", "case": label, "knob": knob, "value": value, "bitwise_equal_default": same,
-                      "ms": time_graph_ms(lambda: deposit.deposit_prep(*inputs, plan)),
-                      "launch": deposit.prep_launch(b, vp, vo, new.ranges.shape[1], sort,
-                                                    deposit._WIDE_CLUSTERS[inputs[0].device])._asdict()})
+                for v in (default, value, value, default):  # in turns
+                    setattr(deposit, knob, v)
+                    deposit._PLANS.clear()  # the plans of the other constant
+                    got = deposit.deposit_prep(*inputs, plan)
+                    if v == value:
+                        same = all(same_bits(getattr(got, f), getattr(new, f)) for f in fields)
+                        launch = deposit.prep_launch(b, vp, vo, new.ranges.shape[1], sort,
+                                                     deposit._WIDE_CLUSTERS[inputs[0].device])._asdict()
+                    runs[v].append(time_graph_ms(lambda: deposit.deposit_prep(*inputs, plan)))
             finally:
                 setattr(deposit, knob, default)
                 deposit._PLANS.clear()
+            emit({"phase": "sweep", "case": label, "knob": knob, "value": value, "bitwise_equal_default": same,
+                  "ms": statistics.median(runs[value]), "default": default,
+                  "default_ms": statistics.median(runs[default]), "runs_ms": {str(k): t for k, t in runs.items()},
+                  "launch": launch})
         del new, old
     return 0 if all(ln["ok"] for ln in lines) else 1
 

@@ -23,6 +23,12 @@ Readers: ``GridShardReader`` (lazy, mmap per shard) or ``read_grid_shards``
 (materialize everything — tests / small stores).  Both give CPU torch
 tensors.
 
+While a torch profiler records, the writer opens the spans
+``molvoxel.store.copy_out`` (a batch's copy to the host) and
+``molvoxel.store.write`` (the files a flush or ``finalize`` writes), and
+counts ``molvoxel.store_bytes`` (shard bytes) and ``molvoxel.store_shards``
+(utils/timing.py).
+
 The layout and manifest are the JAX package's, byte for byte, so a store
 written by either package reads in the other.  bfloat16 and float8_e4m3fn
 grids (which numpy has no dtype for) are stored as raw 2- and 1-byte void
@@ -37,6 +43,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..utils.timing import count, span
 
 __all__ = ["GridShardWriter", "GridShardReader", "read_grid_shards"]
 
@@ -152,7 +160,8 @@ class GridShardWriter:
     def append(self, images, num_atoms: np.ndarray | None = None) -> None:
         """Buffer one (B, C, D, H, W) batch: a torch tensor on any device
         (copied to the host here) or a numpy array."""
-        images, dtype = host_array(images)
+        with span("molvoxel.store.copy_out"):
+            images, dtype = host_array(images)
         if self._dtype is None:
             self._dtype = dtype  # np.load sees bf16 / fp8 as raw void
             self._grid_shape = list(images.shape[1:])
@@ -176,14 +185,17 @@ class GridShardWriter:
         if arr.shape[0] == 0:
             return
         fname = f"shard_{len(self._shards):05d}.npy"
-        np.save(self.root / fname, arr)
-        self._shards.append({"file": fname, "count": int(arr.shape[0])})
-        self._rows += int(arr.shape[0])
-        if limit is None:
-            # provisional manifest: a crash after this point can resume from
-            # the flushed prefix (the atom counts flush alongside)
-            np.save(self.root / "num_atoms.npy", np.concatenate(self._atoms)[: self._rows])
-            self._write_manifest(self._rows, final=False)
+        with span("molvoxel.store.write"):
+            np.save(self.root / fname, arr)
+            count("molvoxel.store_bytes", arr.nbytes)
+            count("molvoxel.store_shards")
+            self._shards.append({"file": fname, "count": int(arr.shape[0])})
+            self._rows += int(arr.shape[0])
+            if limit is None:
+                # provisional manifest: a crash after this point can resume from
+                # the flushed prefix (the atom counts flush alongside)
+                np.save(self.root / "num_atoms.npy", np.concatenate(self._atoms)[: self._rows])
+                self._write_manifest(self._rows, final=False)
 
     def finalize(self, num_molecules: int) -> None:
         """Flush the tail, trim virtual padding, write the manifest."""
@@ -193,8 +205,9 @@ class GridShardWriter:
             if self._atoms
             else np.zeros((0,), np.int32)
         )
-        np.save(self.root / "num_atoms.npy", atoms)
-        self._write_manifest(num_molecules, final=True)
+        with span("molvoxel.store.write"):
+            np.save(self.root / "num_atoms.npy", atoms)
+            self._write_manifest(num_molecules, final=True)
         self._atoms = [atoms]
         self._rows = int(min(num_molecules, self._rows))
         self._finalized = True

@@ -9,7 +9,11 @@ the operational layer a production run needs:
   host buffers on a side CUDA stream, so the copy runs beside the previous
   batch's kernels, and the batch is launched before the previous result is
   handed to the consumer (CUDA launches are asynchronous);
-- observability: molecules/s counters (``StreamStats``);
+- observability: molecules/s counters (``StreamStats``), and while a torch
+  profiler records the spans ``molvoxel.stream.next`` (the wait for the next
+  batch), ``molvoxel.stream.dispatch`` (staging and launch) and
+  ``molvoxel.stream.consume`` (the consumer's call) around each batch
+  (utils/timing.py);
 - checkpoint/resume: an optional JSON manifest ``{"molecules_done", "ts"}``
   records the molecules completed; a restarted run skips them.
 
@@ -39,6 +43,7 @@ from ..core.config import GridSpec
 from ..data.pipeline import PaddedBatch, iter_batches
 from ..data.staging import PinnedRing
 from ..ops.batch import voxelize_batch, voxelize_batch_sliced
+from ..utils.timing import span
 from .sharded import voxelize_batch_dp
 
 
@@ -226,13 +231,20 @@ class StreamingVoxelizer:
 
         def flush(p):
             if p is not None and consumer is not None:
-                consumer(p[0], p[1])
+                with span("molvoxel.stream.consume"):
+                    consumer(p[0], p[1])
 
-        for batch in batches:
+        source = iter(batches)
+        while True:
+            with span("molvoxel.stream.next"):  # the wait for the next batch: the feeder, from this side
+                batch = next(source, None)
+            if batch is None:
+                break
             if batch.radii is None and (radii_dev is None or radii_dev.shape[0] != batch.padded_atoms):
                 radii_dev = torch.full((batch.padded_atoms,), float(self.radii), dtype=torch.float32,
                                        device=self.device)
-            images = self._dispatch(batch, radii_dev, ring)  # launched, not waited for
+            with span("molvoxel.stream.dispatch"):
+                images = self._dispatch(batch, radii_dev, ring)  # launched, not waited for
             flush(pending)  # consume the previous batch while this one runs
             pending = (images, batch)
             stats.batches += 1
